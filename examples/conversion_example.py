@@ -3,10 +3,6 @@
 native device format — see liquid_dsp_tpu/io.py)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.io import (complex_to_iq, iq_to_complex, iq_to_planes,
                                IQ_FORMATS)

@@ -2,10 +2,6 @@
 (reference dotprod_rrrf_example.c / dotprod_cccf_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from liquid_dsp_tpu.ops.dotprod import dotprod, sumsq, conv1d
@@ -28,7 +24,7 @@ e = float(sumsq(jnp.asarray(xc)))
 print(f"sumsq: {e:.5f} (numpy {float(np.sum(np.abs(xc) ** 2)):.5f})")
 
 # the streaming form of a dot product is convolution — the same
-# primitive the FIR layer lowers onto the MXU as a banded matmul
+# primitive the FIR layer lowers to a banded matmul
 # (valid mode: y[t] = sum_j h[j] x[t+L-1-j])
 y = np.asarray(conv1d(jnp.asarray(xc), jnp.asarray(hc)))
 ref = np.convolve(xc, hc)[len(hc) - 1: len(xc)]

@@ -3,10 +3,6 @@ freeze the weights and filter the payload (reference
 eqlms_cccf_block_example.c — _execute_block batch interface)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from liquid_dsp_tpu.modem import constellation, modulate

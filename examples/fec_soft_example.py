@@ -5,10 +5,6 @@ Soft convention: one float per encoded bit, positive = bit 1
 (fec_decode_soft docstring)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.fec.dispatch import fec_encode, fec_decode, fec_decode_soft
 from liquid_dsp_tpu.fec.block import unpack_bits, pack_bits

@@ -3,10 +3,6 @@ stop-band attenuation), design it, and verify the realized response
 against the spec with an FFT (reference firdes_kaiser_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.design.firdes import (
     firdes_kaiser, estimate_req_filter_len)

@@ -1,14 +1,10 @@
 """Complex-coefficient FIR: a Kaiser lowpass heterodyned to +0.2
 cycles/sample becomes a single-sideband bandpass that keeps one tone of
 a two-tone input and drops the other (reference firfilt_cccf_example.c;
-the complex-tap planar path runs as a 3-convolution Karatsuba split on
-TPU, ops/fir.py)."""
+the complex-tap planar path runs as a 3-convolution Karatsuba split,
+ops/fir.py)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from liquid_dsp_tpu.design.firdes import firdes_kaiser

@@ -5,10 +5,6 @@ the decoded bytes (reference analog: flexframesync.c runs the same
 stages per-sample on the CPU)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import jax
 import numpy as np
 import jax.numpy as jnp

@@ -5,10 +5,6 @@ of the reference flexframesync's per-frame runtime reconfiguration,
 reference src/framing/src/flexframesync.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import jax
 import jax.numpy as jnp
 import numpy as np

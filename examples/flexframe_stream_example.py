@@ -3,10 +3,6 @@ three frames with different payload schemes in one noisy capture
 (reference flexframesync_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.framing.flexframe import flexframegen, FlexFrameSync
 

@@ -1,17 +1,12 @@
-"""TPU-native chain transforms: LTI fusion + planar (SoA) execution.
+"""Chain transforms: LTI fusion + planar (SoA) execution.
 
 No reference analog — the reference's C objects are bound to their own
 implementations and to interleaved complex storage.  Here a cascade
 advertising LTI descriptions collapses into ONE strided FIR (fuse) and
 the whole chain can run on (re, im) float32 planes (planar) — the
-layout/algebra freedoms that make the headline chain ~4x faster on TPU
-(PERF.md)."""
+layout/algebra freedoms the headline chain's fast paths are built on."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -1,14 +1,10 @@
 """Block state-space IIR backend: the off-CPU default formulation
 (Toeplitz-of-impulse-response matmul + T/L state scan) matches the
-sequential scan to float rounding while running ~300-800x faster on
-the TPU (PERF.md r4).  No reference analog — the reference executes
+sequential scan to float rounding, as matmuls instead of a per-sample
+loop.  No reference analog — the reference executes
 IIR filters one sample at a time (iirfilt.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from liquid_dsp_tpu.design.iirdes import iirdes_sos

@@ -6,10 +6,6 @@ with a convolutional code (whose Viterbi decoder handles scattered
 errors but not dense runs) the benefit is dramatic."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.fec.interleave import interleave, deinterleave
 from liquid_dsp_tpu.fec.dispatch import fec_encode, fec_decode

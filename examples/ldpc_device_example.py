@@ -4,10 +4,6 @@ ldpc_decoder_device).  The reference's sumproduct.c decodes one
 codeword at a time on the CPU (internal/experimental module)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import jax
 import numpy as np
 import jax.numpy as jnp

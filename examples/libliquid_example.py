@@ -4,7 +4,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import liquid_dsp_tpu
 
 print(f"liquid_dsp_tpu version {liquid_dsp_tpu.__version__}")
-print("TPU-native SDR DSP framework with the capabilities of "
+print("Block-streaming SDR DSP framework with the capabilities of "
       "liquid-dsp v1.2.0")
 mods = [m for m in dir(liquid_dsp_tpu) if not m.startswith("_")]
 print(f"top-level API ({len(mods)} names): {', '.join(sorted(mods)[:12])}, ...")

@@ -2,10 +2,6 @@
 (reference math_lngamma_example.c / math_primitive_root_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.design.special import (lngamma, gamma, besseli0, besselj0,
                                            sinc, qfunction, is_prime, factor,

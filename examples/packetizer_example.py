@@ -2,10 +2,6 @@
 (reference packetizer_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.fec.packetizer import (packetizer_encode,
                                            packetizer_decode,

@@ -2,10 +2,6 @@
 (reference polyfit_example.c / polyfit_lagrange_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.utils.poly import (
     poly_fit, poly_val, poly_interp_lagrange, poly_findroots, poly_expandroots)

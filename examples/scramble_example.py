@@ -2,10 +2,6 @@
 (reference scramble_example.c / msequence_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 from liquid_dsp_tpu.utils.random import scramble_data, unscramble_data
 from liquid_dsp_tpu.utils.sequence import msequence_bits

@@ -9,7 +9,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
 from liquid_dsp_tpu import chain
 from liquid_dsp_tpu.design.firdes import firdes_kaiser
 from liquid_dsp_tpu.ops.fir import firfilt

@@ -8,9 +8,6 @@ import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import os
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=4")
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax
 import jax.numpy as jnp

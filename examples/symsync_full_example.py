@@ -4,10 +4,6 @@ channel noise — the synchronizer tracks both while the matched filter
 rejects the noise (reference symsync_crcf_full_example.c)."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax.numpy as jnp
 from liquid_dsp_tpu.design.firdes import firdes_prototype

@@ -3,14 +3,11 @@ split across a device mesh (sequence parallelism, SURVEY §2.12) — the
 history halo rides a nearest-neighbor ppermute and a frame STRADDLING
 the shard boundary still decodes exactly once, identically to the
 single-device receiver.  Runs on the 8-virtual-device CPU mesh; the
-same code scales one channel past a chip on real ICI."""
+same code scales one channel past a card over NVLink."""
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 import os
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=4")
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import jax
 import jax.numpy as jnp
 import numpy as np

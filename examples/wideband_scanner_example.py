@@ -2,7 +2,7 @@
 frame64 bursts hiding on a few channels (tones and noise elsewhere),
 channelized back apart with the oversampled polyphase analyzer, and ALL
 64 channel streams are scanned by ONE batched streaming frame64
-receiver — the data-parallel TPU story: the whole scanner is a single
+receiver — the data-parallel story: the whole scanner is a single
 jitted pipeline, channels ride the batch axis.
 
 (The reference can only do this one channel at a time:
@@ -10,10 +10,6 @@ firpfbch2_crcf_example.c + framesync64_example.c composed by hand.)
 """
 import pathlib, sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-import os
-if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import jax
 import jax.numpy as jnp

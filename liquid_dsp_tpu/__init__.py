@@ -1,16 +1,19 @@
-"""liquid_dsp_tpu — a TPU-native software-defined-radio DSP framework.
+"""liquid_dsp_tpu — a block-streaming software-defined-radio DSP framework
+for accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference C library (liquid-dsp v1.2.0): filter design and streaming
 filters, FFT plans, resamplers, NCO mixing, AGC, equalizers, FEC, modems,
 polyphase channelizers, OFDM, and full framing PHY chains — redesigned as
-pure block functions with explicit carry state, shardable over TPU meshes.
+pure block functions with explicit carry state, shardable over device
+meshes.
 
 Package layout:
   core        — Proc abstraction: (params, carry, block) -> (out, carry)
   design/     — host-side coefficient generators (firdes, iirdes, windows)
   ops/        — streaming compute ops (fir, fft, resample, nco, agc, eq, ...)
-  ops/kernels — Pallas TPU kernels for the hot paths
+  ops/kernels — Pallas GPU kernels (Triton route) for the hot paths
+  platform    — the per-platform formulation choices, in one table
   fec/        — CRC + forward error correction + packetizer
   modem/      — linear/GMSK/FSK/analog modems
   multichannel/ — polyphase channelizers, OFDM frame PHY

@@ -2,7 +2,7 @@
 
 Users migrating from the reference C library (liquid-dsp) can import
 this module to find the familiar `liquid_*`/object-style names mapped to
-their TPU-native equivalents.  The semantics differ only in the calling
+their block-streaming equivalents.  The semantics differ only in the calling
 model: reference objects stream one sample at a time; these process
 blocks with explicit carries (see README).
 
@@ -12,7 +12,7 @@ blocks with explicit carries (see README).
     y, carry = q(x, batch_shape=())
 
 Where the reference distinguishes rrrf/crcf/cccf type suffixes, the
-TPU ops are polymorphic over dtype; all suffixed aliases resolve to the
+ops here are polymorphic over dtype; all suffixed aliases resolve to the
 same factory.
 """
 from __future__ import annotations

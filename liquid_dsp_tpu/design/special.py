@@ -105,7 +105,7 @@ def marcumq1(alpha, beta, iterations: int | None = None):
     a_mul_b = alpha * beta_safe
     if iterations is None:
         # I_k(ab) stays significant up to order k ~ ab; a fixed 64-term
-        # cut gave percent-level CDF error for ab > ~400 (ADVICE r3)
+        # cut gave percent-level CDF error for ab > ~400
         ab_max = float(np.max(a_mul_b)) if a_mul_b.size else 0.0
         iterations = max(64, int(ab_max + 10.0 * math.sqrt(ab_max + 1.0)) + 1)
     # ln I_k over ALL orders k with ONE shared log-factorial table:

@@ -15,7 +15,7 @@ syndromes exactly cover weight<=3 errors).
 
 DESIGN CHOICE: this whole byte path runs in HOST numpy, deliberately.
 FEC operates on short byte packets after the receiver has gathered and
-demodulated a frame; at those sizes device dispatch dominates any MXU
+demodulated a frame; at those sizes device dispatch dominates any matmul
 win, and keeping it host-side lets receivers decode headers eagerly
 (flexframe's payload geometry depends on decoded header bytes).  The
 matmul formulation means a device port is mechanical if a future

@@ -18,7 +18,7 @@ bit-reversals of the classic right-shift octal sets:
                                           (the Cassini/Pathfinder code)
 MSB-first packing throughout.
 
-TPU design: Viterbi is a lax.scan over time of a vectorized
+Design: Viterbi is a lax.scan over time of a vectorized
 add-compare-select across all 2^(K-1) states (SURVEY.md §7 hard part #3)
 with traceback via stored decisions.  Works on hard bits or soft LLRs
 (branch metrics = Hamming or negative-correlation).

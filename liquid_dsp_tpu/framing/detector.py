@@ -6,7 +6,7 @@ cross-correlate against the frequency-domain template over +-range
 frequency-bin offsets, peak -> (timing tau, carrier dphi/phi, gain
 gamma).
 
-TPU design (SURVEY.md §7: "detect everywhere"): instead of the
+Design (SURVEY.md §7: "detect everywhere"): instead of the
 reference's per-sample state machine, the whole capture is processed as
 a batch of half-overlapped nfft segments — one batched FFT, a batched
 conjugate multiply per frequency offset, one batched IFFT, one argmax.

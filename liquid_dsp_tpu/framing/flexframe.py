@@ -9,7 +9,7 @@ with CRC-32 + SEC-DED(72,64) + Hamming(8,4) on QPSK with pilots every
 16 symbols (liquid.internal.h:1127-1133), payload coded per runtime
 properties, ARKAISER k=2 m=7 beta=0.25 pulse shaping.
 
-TPU design: same block receiver as frame64 — detect anywhere, gather
+Design: same block receiver as frame64 — detect anywhere, gather
 matched-filter outputs; the header is decoded first to learn the payload
 length/scheme, then the payload symbols are sliced from the same symbol
 stream (two-stage block pipeline instead of a per-sample state machine).
@@ -196,13 +196,13 @@ def flexframesync(x, threshold: float = 0.5) -> FlexFrameResult:
 
 
 # ---------------------------------------------------------------------------
-# TPU-resident streaming multi-frame receiver
+# device-resident streaming multi-frame receiver
 # ---------------------------------------------------------------------------
 #
 # Same detect-everywhere streaming core as framesync64 (stream_rx.py),
 # but the payload length is only known after the header decodes
 # (reference src/framing/src/flexframesync.c: the rxheader state
-# computes payload geometry at runtime).  Two-stage TPU design:
+# computes payload geometry at runtime).  Two-stage design:
 #
 #   stage 1 (device, one jit per block): detect + refine + matched-filter
 #     the FIXED-length header region, pilot-sync it, emit corrected
@@ -267,7 +267,7 @@ def _flex_stream_common(region: int, suppress_region_syms: int):
     """Shared full-device receiver geometry: detector StreamRxConfig,
     header non-pilot index map, two-stage header decoder, header
     constellation (single source of truth for flexframe_rx_stream AND
-    the multi-config variant — r5 review finding)."""
+    the multi-config variant)."""
     from ..modem.linear import constellation
     from ..fec.device import packetizer2_soft_decoder
 
@@ -408,14 +408,14 @@ def flexframe_rx_stream_multi(block_len: int, configs,
                               threshold: float = 0.5,
                               max_frames: int = 4) -> Proc:
     """HEADER-ADAPTIVE full-device streaming flexframe receiver
-    (VERDICT r4 item 4): decodes a REGISTERED SET of payload
+    decodes a REGISTERED SET of payload
     configurations in one stream at the full-device rate.  The header
     decodes on device as in flexframe_rx_stream; the payload stage then
     runs EVERY registered config's decoder over the shared synced
     region and one-hot selects the result by the header-announced
     config — compiler-friendly dispatch with static shapes (a traced
     branch per frame cannot live under jit; the decoders are cheap
-    codebook matmuls, PERF.md device-FEC rows).  Frames announcing an
+    codebook matmuls).  Frames announcing an
     unregistered config report hdr_ok=False (cfg_idx=-1), the same
     contract the fixed-config receiver applies to every foreign frame.
 

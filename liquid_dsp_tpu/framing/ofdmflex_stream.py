@@ -4,7 +4,7 @@ The reference's `ofdmflexframesync` runs its whole pipeline in-stream —
 S0 seek, S1 sync, per-symbol EQ, header decode, payload decode, callback
 (reference src/framing/src/ofdmflexframesync.c:63-93).  The host-looped
 `OFDMFlexFrameSync` (ofdmflexframe.py) keeps that contract for arbitrary
-per-frame configurations; THIS module is the TPU-resident fixed-config
+per-frame configurations; THIS module is the device-resident fixed-config
 pipeline: for a known payload configuration (the deployed-link case),
 every stage from raw samples to FEC-decoded message indices runs inside
 ONE jitted block step:
@@ -12,11 +12,11 @@ ONE jitted block step:
     samples [..., T]
       -> Schmidl-Cox S0 detect-everywhere (banded-matmul window sums)
       -> per-candidate window extraction (stacked planes + fori_loop
-         dynamic_slice — occupancy-scaled, PERF.md extraction rules)
+         dynamic_slice — occupancy-scaled)
       -> batched S1 timing matmul + channel EQ + CP-strip FFT + pilot
          phase/timing tracking (multichannel.ofdm.ofdm_demod_window)
       -> header: BPSK max-log LLRs, static descramble sign mask,
-         deinterleave gather, Golay codebook MXU matmul, argmax
+         deinterleave gather, Golay codebook matmul, argmax
       -> payload: exact max-log LLRs for the configured modem, same
          device block-FEC decode (fec/device.py)
 
@@ -96,7 +96,7 @@ def ofdmflex_rx_stream(block_len: int, payload_len: int,
                        params: OFDMParams | None = None,
                        threshold: float = 0.7,
                        max_frames: int = 4) -> Proc:
-    """TPU-resident streaming OFDM flexframe receiver for one payload
+    """Device-resident streaming OFDM flexframe receiver for one payload
     configuration.  apply(params_, carry, x[..., block_len]) ->
     (OFDMFlexStreamBlock, carry').  Use OFDMFlexStreamRX for the host
     byte/CRC finish + callback contract."""
@@ -156,16 +156,16 @@ def ofdmflex_rx_stream(block_len: int, payload_len: int,
         valid, d0, cfo0, peak, cand, pos, n_cand = s0_detect_block(
             buf, carry["last_end"], Mn, threshold, span, T, n_chunk,
             P_, _CH)
-        # ---- two-stage extraction (PERF.md r5): NO vmapped dynamic
+        # ---- two-stage extraction: NO vmapped dynamic
         # slices anywhere.  Stage A slices the SHORT S1-search window
         # [2, WA] per valid candidate (dynamic-trip fori_loop, stacked
         # planes), finds `best` with a batched conv correlation; stage
         # B slices the S1-aligned [2, M+body_len] window at d0+best and
         # demodulates without any internal dynamic slice (the old
         # vmapped ofdm_demod_window lowered its two per-candidate
-        # dynamic slices to SEQUENTIAL while loops — the frame64 r2
-        # pathology — and was ~80% of the full-RX cost, PERF.md r4
-        # ablation) ----
+        # dynamic slices to SEQUENTIAL while loops, which dominated the
+        # full-RX cost on the accelerator this was first tuned on; not
+        # measured on H100) ----
         buf2 = jnp.stack([jnp.real(buf), jnp.imag(buf)])
         need_end = max(0, (T - 1 + WIN) - (hist + T))
         if need_end:

@@ -6,7 +6,7 @@ Reference analog (studied, not copied): symtrack_cccf
 samples/symbol rnyquist) -> eqlms_cccf -> nco PLL driven by the modem's
 demod phase error -> symbol decisions.
 
-TPU design: AGC and symbol sync are the existing scan-based Procs; the
+Design: AGC and symbol sync are the existing scan-based Procs; the
 carrier PLL runs as one scan over recovered symbols; the equalizer
 update is decision-directed LMS.  Variable-rate boundaries are compacted
 between stages (host-side), matching the burst/streaming use case.
@@ -26,23 +26,6 @@ from ..ops.equalize import eqlms_lowpass_weights, eqlms_run
 from ..modem import constellation
 
 __all__ = ["SymtrackResult", "symtrack", "symtrack_stream", "Symtrack"]
-
-
-def _use_fused(batch=()) -> bool:
-    """Trace-time pick of the fused symsync+PLL+LMS scan (off-CPU
-    default for LARGE channel batches; at B <= 32 the UNfused path wins
-    ~10% because its symsync stage dispatches the Pallas loop kernel,
-    which cannot carry the PLL/LMS post hook — measured B=8/16/32:
-    unfused 1.7/3.2/6.3 vs fused 1.5/3.0/5.6 Msps, PERF.md r5).
-    LIQUID_SYMTRACK_FUSED=0/1 overrides for testing."""
-    import os
-    ov = os.environ.get("LIQUID_SYMTRACK_FUSED")
-    if ov is not None:
-        return ov == "1"
-    Bf = 1
-    for d in batch:
-        Bf *= int(d)
-    return jax.default_backend() != "cpu" and Bf > 32
 
 
 class SymtrackResult(NamedTuple):
@@ -135,12 +118,16 @@ def symtrack_stream(ftype: str = "arkaiser", k: int = 2, m: int = 7,
                     eq_len: int = 13, eq_mu: float = 0.05,
                     pll_bw: float = 0.05, agc_bw: float = 0.02,
                     sync_bw: float = 0.02,
-                    name: str = "symtrack_stream"):
+                    name: str = "symtrack_stream", fused=None):
     """Streaming symbol tracker Proc.
 
     apply(params, carry, x[..., T]) -> ((syms, decisions, valid), carry')
     where the outputs are at the symsync slot rate with a validity mask
     (compact with the mask).  All stage states persist in the carry.
+    fused=None takes the platform policy's "symtrack_fused" entry
+    (platform.py): the PLL+LMS stage inside the hoisted symsync scan,
+    or a second scan after it; True/False force one (the conformance
+    replay compares the two).
     """
     from ..core import Proc, scan_unroll
     ag = agc(bandwidth=agc_bw)
@@ -217,7 +204,7 @@ def symtrack_stream(ftype: str = "arkaiser", k: int = 2, m: int = 7,
 
         def post(c, s, vm):
             """Carrier PLL + DD-LMS on one symbol slot, ALL-REAL body
-            (the agc/symsync real-plane trick, PERF.md): complex
+            (the agc/symsync real-plane trick): complex
             arithmetic is decomposed onto (re, im) planes so the scan
             body carries no complex ops."""
             s_re, s_im = jnp.real(s), jnp.imag(s)
@@ -281,11 +268,13 @@ def symtrack_stream(ftype: str = "arkaiser", k: int = 2, m: int = 7,
                     "eq_x2": pc["eq_x2"], "eq_n": pc["eq_n"]}
 
         from ..ops.symsync import _hoist_chunk
-        if _use_fused(x.shape[:-1]) and _hoist_chunk(
+        from ..platform import policy
+        use_fused = policy("symtrack_fused") if fused is None else fused
+        if use_fused and _hoist_chunk(
                 int(x.shape[-1])) <= 4096:
             # (the chunk guard mirrors symsync_run's: prime-ish block
             # lengths would materialize the whole branch-output buffer)
-            # FUSED path (PERF.md r5): the PLL+LMS stage rides inside
+            # FUSED path: the PLL+LMS stage rides inside
             # the hoisted symsync scan as its post-emit hook — one pass
             # over the block instead of symsync scan + a second
             # max_out*T-slot scan

@@ -3,10 +3,10 @@ strided FIR.
 
 The reference treats a filter cascade as a sequence of opaque objects and
 asserts only that exact implementations are interchangeable (reference
-examples/fftfilt_crcf_example.c: firfilt == fftfilt).  On TPU the dominant
-cost of a cascade is HBM traffic — each stage streams the whole block
-through the MXU again — so the TPU-native move is algebraic: adjacent LTI
-stages
+examples/fftfilt_crcf_example.c: firfilt == fftfilt).  On an
+accelerator the dominant cost of a cascade is device-memory traffic —
+each stage streams the whole block through memory again — so the move is
+algebraic: adjacent LTI stages
 
     y[i] = sum_j h[j] * x[down*i + d - j]
 
@@ -18,8 +18,7 @@ compose into a single stage with
 
 (d' < down' holds inductively when each stage satisfies d < down).  The
 fused stage runs as one banded-tap matmul pass (ops/fir.py) at full rate
-followed by a strided slice — measured 2.3x the unfused chain on the
-headline benchmark (PERF.md).  Output is the same samples up to fp32
+followed by a strided slice.  Output is the same samples up to fp32
 rounding (one accumulation instead of a cascade; relative error ~1e-4).
 
 Stages advertise their LTI description via Proc.lti (core.py); anything
@@ -30,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 from .core import LTI, Proc, chain
 
@@ -83,8 +83,8 @@ def fused_fir(meta: LTI, name: str = "fused_fir") -> Proc:
         return jnp.zeros(batch_shape + (L - 1,), dtype=dtype)
 
     def _apply_one(h, c, x):
-        import jax as _jax
-        if _jax.default_backend() != "cpu":
+        from .platform import policy
+        if policy("fir_banded_matmul"):
             yf, c2 = fir_apply_matmul(h, c, x, tile=256)
             y = yf[..., d::down] if (down > 1 or d) else yf
             return y, c2
@@ -117,16 +117,16 @@ def fused_fir(meta: LTI, name: str = "fused_fir") -> Proc:
 
 
 def kernel_fuse(proc: Proc, out_dtype=None) -> Proc:
-    """Collapse a (mixer -> fused-FIR) pair into ONE Pallas TPU kernel.
+    """Collapse a (mixer -> fused-FIR) pair into ONE fused GPU kernel.
 
     Pattern-matches a chain whose flattened stages are exactly
-    [nco (VCO mode, scalar phase), LTI stage (real taps, L <= 257)] —
-    the shape `fuse()` leaves the headline chain in — and returns a
-    Proc whose planar path runs mixer + banded FIR + decimation in one
-    VMEM pass (ops/kernels/pallas_chain.py: ~12 B/sample of HBM traffic
-    instead of ~36 — the inter-tile halo rides in VMEM scratch, so each
-    input plane is read once).  Anything that doesn't match is returned
-    unchanged, so `kernel_fuse(fuse(p))` is always safe.
+    [nco (VCO mode, scalar phase), LTI stage (real taps, 2 <= L <= 257)]
+    — the shape `fuse()` leaves the headline chain in — and returns a
+    Proc whose planar path runs mixer + FIR + decimation in one pass
+    (ops/kernels/pallas_chain.py: each input plane read once, each
+    output written once).  Anything that doesn't match, and any platform
+    whose policy takes no kernel (platform.py "chain_kernel"), gets the
+    chain back unchanged, so `kernel_fuse(fuse(p))` is always safe.
 
     ``out_dtype`` controls output narrowing — an EXPLICIT opt-in,
     decoupled from the lossless narrow-read optimization (bf16 input
@@ -136,61 +136,71 @@ def kernel_fuse(proc: Proc, out_dtype=None) -> Proc:
     end-to-end pipelines); an explicit dtype forces that.  Arithmetic
     and the carry are float32 in all cases.
 
-    Constraints at run time: block length a multiple of 2048, batch a
-    multiple of 8, batch_shape of rank 1 (or scalar), phase shared
-    across the batch."""
-    from .ops.kernels.pallas_chain import (SUB, TILE, fold_offset,
-                                           make_band, make_ramp,
-                                           mix_fir_decim)
+    Constraints at run time: batch_shape of rank 1 (or scalar), block
+    length a multiple of the decimation, phase shared across the
+    batch."""
+    from .platform import policy
+    plan = _kernel_plan(proc)
+    if plan is None or not policy("chain_kernel"):
+        return proc
+    return _kernel_proc(proc.name, plan, out_dtype)
+
+
+def _kernel_plan(proc: Proc):
+    """(h, down, step, sgn, theta0) when `proc` is [nco, real LTI]."""
+    from .ops.kernels.pallas_chain import MAX_TAPS, fold_offset
     stages = _flatten(proc)
     if len(stages) != 2:
-        return proc
+        return None
     mix, fir = stages
     m = mix.meta or {}
     if (m.get("kind") != "nco" or m.get("table") or fir.lti is None
-            or np.iscomplexobj(fir.lti.taps)
-            or np.atleast_1d(fir.lti.taps).shape[-1] > SUB + 1):
-        return proc
-    dphi, theta0, sgn = m["dphi"], m["theta0"], m["sgn"]
+            or np.iscomplexobj(fir.lti.taps)):
+        return None
+    L = np.atleast_1d(fir.lti.taps).shape[-1]
+    if not 2 <= L <= MAX_TAPS:
+        return None
     h = fold_offset(np.asarray(fir.lti.taps, np.float32), fir.lti.d)
-    L = int(h.shape[-1])
-    down = int(fir.lti.down)
-    if SUB % down:
-        return proc
-    band = make_band(h, down)
-    ramp_c, ramp_s = make_ramp(L, dphi)
+    return h, int(fir.lti.down), int(m["step"]), float(m["sgn"]), \
+        float(m["theta0"])
+
+
+def _kernel_proc(name: str, plan, out_dtype=None,
+                 interpret: bool = False) -> Proc:
+    """The fused-kernel Proc for a `_kernel_plan` (tests pass
+    interpret=True to run the kernel on the CPU)."""
+    from .ops.kernels.pallas_chain import mix_fir_decim
+    from .ops.nco import _wrap, step_phase
+    h, down, step, sgn, theta0 = plan
+    C = len(h) - 1
 
     def planar_init(batch_shape=(), dtype=jnp.float32):
         if len(batch_shape) > 1:
             raise ValueError("kernel_fuse supports rank<=1 batch shapes")
         B = batch_shape[0] if batch_shape else 1
-        z = jnp.zeros((B, SUB), jnp.float32)
+        z = jnp.zeros((B, C), jnp.float32)
         return {"tr": z, "ti": z, "theta": jnp.float32(theta0)}
 
     def planar_apply(params, carry, x):
-        import jax as _jax
         r, i = x
         flat = r.ndim == 1
         if flat:
             r, i = r[None], i[None]
-        # bfloat16 planes pass straight through to the kernel (halves
-        # HBM read traffic, exact for 8-bit captures — pallas_chain
-        # docstring); the OUTPUT dtype is the explicit out_dtype policy
-        # from kernel_fuse (float32 unless the caller opted into
-        # narrowing).  Arithmetic and the carry stay float32 either way.
         od = (r.dtype if out_dtype == "input"
               else jnp.float32 if out_dtype is None else out_dtype)
         yr, yi = mix_fir_decim(
-            r, i, carry["tr"], carry["ti"], carry["theta"],
-            ramp_c, ramp_s, band, L=L, down=down, sgn=sgn, dphi=dphi,
-            interpret=_jax.default_backend() == "cpu",
-            out_dtype=od)
-        theta = jnp.mod(carry["theta"] + np.float32(
-            np.mod(dphi * r.shape[-1], 2 * np.pi)) + np.pi,
-            2 * np.pi) - np.pi
-        new_carry = {"tr": r[:, -SUB:].astype(jnp.float32),
-                     "ti": i[:, -SUB:].astype(jnp.float32),
-                     "theta": theta}
+            r, i, carry["tr"], carry["ti"], carry["theta"], h, down=down,
+            sgn=sgn, step=step, interpret=interpret, out_dtype=od)
+
+        def tail(c, v):          # last C pre-mix samples, c | v
+            v = v.astype(jnp.float32)
+            if v.shape[-1] >= C:
+                return v[:, v.shape[-1] - C:]
+            return jnp.concatenate([c, v], axis=-1)[:, -C:]
+
+        new_carry = {"tr": tail(carry["tr"], r), "ti": tail(carry["ti"], i),
+                     "theta": _wrap(carry["theta"] +
+                                    step_phase(r.shape[-1], step))}
         if flat:
             yr, yi = yr[0], yi[0]
         return (yr, yi), new_carry
@@ -201,11 +211,10 @@ def kernel_fuse(proc: Proc, out_dtype=None) -> Proc:
     def apply(params, carry, x):
         (yr, yi), c2 = planar_apply(
             params, carry, (jnp.real(x), jnp.imag(x)))
-        import jax.lax as _lax
-        return _lax.complex(yr, yi), c2
+        return lax.complex(yr, yi), c2
 
     return Proc(params=(), init=init, apply=apply, rate=(1, down),
-                name=proc.name + "_kernel", halo=L - 1,
+                name=name + "_kernel", halo=C,
                 planar_apply=planar_apply, planar_init=planar_init)
 
 

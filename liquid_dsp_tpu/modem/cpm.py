@@ -14,11 +14,11 @@ Reference analogs (studied, not copied):
                       pi*h; NRZ v = 2s-M+1, cpfskmod.c:226), cpfskdem.c
                       (phase-derivative demodulation).
 
-TPU design: symbols arrive as a block [..., N]; pulse shaping is one
+Design: symbols arrive as a block [..., N]; pulse shaping is one
 transposed convolution, phase integration is one cumsum, and the carrier
 exponential is one elementwise exp — all fused by XLA.  Demodulators
 compute the whole block's phase derivative at once; the FSK demodulator is
-a batched [N, k] x [k, K] DFT matmul (MXU-shaped).
+a batched [N, k] x [k, K] DFT matmul.
 """
 from __future__ import annotations
 
@@ -135,7 +135,7 @@ def fsk_frequency_error(y, m: int, k: int, bandwidth: float = 0.25):
     Gather-free on device: bin indices are STATIC numpy arrays (tone,
     tone-1, tone+1 maps), and the per-symbol peak selection is a
     one-hot reduction over the M tones — no traced-index jnp.take /
-    take_along_axis, which serialize on TPU (CLAUDE.md rule)."""
+    take_along_axis (CLAUDE.md gather rule)."""
     M = 1 << m
     M2 = 0.5 * (M - 1)
     K = fsk_fft_size(m, k, bandwidth)

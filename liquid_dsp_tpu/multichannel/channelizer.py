@@ -8,13 +8,12 @@ Reference analogs (studied, not copied):
   * firpfbch2 — src/multichannel/src/firpfbch2.c:36-329: oversampled
                 (M/2-sample advance) channelizer, 2x output rate.
 
-TPU design (the "batched polyphase+FFT kernel" of BASELINE.md): the
+Design (the "batched polyphase+FFT kernel" of BASELINE.md): the
 per-branch polyphase filter has contraction length p = 2m (~8) — far
-too small for the MXU — so for practical channel counts the filter and
+too small for a matrix unit — so for practical channel counts the filter and
 the M-point (I)DFT are FUSED algebraically into dense banded matrices
 and each block becomes a handful of real [L, depth*M] x [depth*M, M]
-MXU matmuls over sliding frame windows (compute-bound at >=54% of the
-measured MXU rate, PERF.md "Channelizer").  Beyond `_FUSED_MAX_M`
+matmuls over sliding frame windows.  Beyond `_FUSED_MAX_M`
 channels the dense DFT factor grows O(M^2) (2.4 GB of constants at
 M=4096) and an FFT wins, so the constructors fall back to the
 grouped-einsum branch filter + batched (I)FFT formulation.
@@ -112,10 +111,10 @@ def firpfbch_analyzer(M: int, m: int = 4, as_db: float = 60.0, h=None,
     Structure: window i's stream u_i[l] = x[l*M + M-1-i], branch-filtered
     by taps h[i + n*M]; bin (M-1-i) of a forward FFT across branches.
 
-    TPU-fused form (r3, M <= _FUSED_MAX_M): the p-tap branch filter and
+    Fused form (M <= _FUSED_MAX_M): the p-tap branch filter and
     the M-point FFT compose into ONE [pM, M] matrix
     A[(d, c), b] = Hb[c, p-1-d] * exp(-2j*pi*(M-1-c)*b/M), so a block is
-    four real [L, pM] x [pM, M] MXU matmuls on (re, im) planes.
+    four real [L, pM] x [pM, M] matmuls on (re, im) planes.
     `precision` as in firpfbch2_analyzer (default HIGHEST).  Larger M
     falls back to the grouped-einsum + batched-FFT formulation (the
     dense DFT factor grows O(M^2))."""
@@ -205,7 +204,7 @@ def firpfbch_synthesizer(M: int, m: int = 4, as_db: float = 60.0, h=None,
 
     Input [..., M, L] -> output [..., L*M].
 
-    TPU-fused form (r3, M <= _FUSED_MAX_M, mirror of firpfbch_analyzer):
+    Fused form (M <= _FUSED_MAX_M, mirror of firpfbch_analyzer):
     the unnormalized IDFT and the p-tap branch filter compose into ONE
     [pM, M] matrix S[(d, j), r] = Hb[r, p-1-d] * exp(2j*pi*j*r/M) over
     p-frame windows of the channel-symbol stream.  `precision` as in
@@ -294,12 +293,12 @@ def firpfbch2_analyzer(M: int, m: int = 4, as_db: float = 60.0,
     Input [..., T] (T % M == 0, i.e. an even number of hops) -> output
     [..., M, 2*T//M].
 
-    TPU-fused form (r3, M <= _FUSED_MAX_M): window j's sample stream is
+    Fused form (M <= _FUSED_MAX_M): window j's sample stream is
     u_j[n] = x[n*M + M/2-1-(j mod M/2) + (j>=M/2)*M/2]; even hops
     filter it with branch taps k=j (opposite window half lagged one
     hop), odd hops with k=(j-M/2) mod M; each hop then takes an M-point
     IFFT across j.  Both the per-branch filter (contraction length
-    p=2m — far too small for the MXU alone) and the IDFT fuse into ONE
+    p=2m — far too small for a matrix unit alone) and the IDFT fuse into ONE
     matrix per hop type:
 
         X[t, b] = sum_{d, j} w[t, d, j] * A[(d, j), b],
@@ -307,13 +306,10 @@ def firpfbch2_analyzer(M: int, m: int = 4, as_db: float = 60.0,
         A_odd [(d, j), b] = G[(j-M/2) mod M, p-d] * W[j, b] / M,
 
     with w the (p+1)-frame sliding window over u — a [(p+1)M, M]
-    MXU matmul per hop type (measured 1.7x the grouped-einsum + FFT
-    formulation at float32 precision, 5.3x at the default bf16 matmul
-    pass; PERF.md "Channelizer").  `precision` pins the matmul
-    precision: default HIGHEST (true float32, the golden tolerance is
-    2e-4 and DEFAULT's one-pass-bf16 error of 2.4e-3 on chip would
-    exceed it); lax.Precision.HIGH measures 1.3e-5 on chip at 1.4x the
-    HIGHEST throughput for tolerance-flexible pipelines.
+    matmul per hop type.  `precision` pins the matmul precision:
+    default HIGHEST (true float32; the golden tolerance is 2e-4, which a
+    reduced-precision pass such as TF32 can exceed); a lower setting is
+    for tolerance-flexible pipelines.
 
     Larger M falls back to the einsum + batched-IFFT formulation; the
     planar path (planar.py) exists on the fused regime only.
@@ -431,7 +427,7 @@ def firpfbch2_synthesizer(M: int, m: int = 4, as_db: float = 60.0,
 
     Input [..., M, nf] (nf even) -> output [..., nf*M/2].
 
-    TPU-fused form (r3, M <= _FUSED_MAX_M, mirror of the analyzer
+    Fused form (M <= _FUSED_MAX_M, mirror of the analyzer
     fusion): the per-hop IDFT and the two alternating-bank branch
     filters compose into four [(p+1)M, M/2] matrices over (p+1)-frame
     windows of the even-hop and odd-hop channel-symbol streams:

@@ -1,7 +1,7 @@
 """Native (C) kernels for the host/runtime-side packet path.
 
-The reference's packet framing is tight C99 bit manipulation; the TPU is
-the wrong tool for per-byte polynomial division and index-chasing swaps,
+The reference's packet framing is tight C99 bit manipulation; the
+accelerator is the wrong tool for per-byte polynomial division and index-chasing swaps,
 so these inner loops are implemented natively (feckit.c), compiled once
 with the system compiler, and loaded via ctypes.  Every entry point has
 a pure-Python fallback so the package works without a compiler.

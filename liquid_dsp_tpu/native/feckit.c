@@ -2,7 +2,7 @@
  *
  * The reference implements its packet framing (CRC polynomial division,
  * block interleaving, bit packing) as tight C99 loops; these are the
- * host/runtime-side hot paths that do not map to the TPU.  This library
+ * host/runtime-side hot paths that do not map to the accelerator.  This library
  * provides the same inner loops natively, loaded via ctypes with a pure
  * Python fallback (see liquid_dsp_tpu/native/__init__.py).
  *

@@ -2,9 +2,9 @@
  *
  * The host-side data loader converts captured IQ byte streams
  * (cu8/cs8/cs16/cf32 interleaved, the formats produced by common SDR
- * front-ends) into the float32 real/imag planes the TPU compute path
+ * front-ends) into the float32 real/imag planes the device compute path
  * consumes, and back.  These are memory-bandwidth-bound byte loops —
- * runtime-side native code, not TPU work (cf. reference liquid-dsp,
+ * runtime-side native code, not device work (cf. reference liquid-dsp,
  * whose entire runtime is C; this framework keeps the compute path in
  * XLA and the byte-wrangling here).
  *

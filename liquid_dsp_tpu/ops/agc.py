@@ -8,7 +8,7 @@ lock/unlock, rssi accessors (API include/liquid.h:93-160).
 The per-sample feedback cannot be parallelized across time without
 changing the algorithm (SURVEY.md §7 hard-parts #1), so it runs as a
 lax.scan over the block with the (g, y2_prime) carry — batch/channel axes
-vectorize freely, which is where the TPU parallelism lives.
+vectorize freely, which is where the device parallelism lives.
 """
 from __future__ import annotations
 
@@ -30,9 +30,8 @@ def agc_scan(alpha, carry, x, locked: bool = False):
     The scan body is ALL-REAL: the loop only needs the instantaneous
     power p = |x|^2 (y2 = g^2 p — identical recurrence), so per-sample
     gains come out of a real scalar scan and the complex input is
-    scaled elementwise OUTSIDE the scan.  The complex-body form
-    measured ~10x slower on chip (PERF.md agc rows: the scan step is
-    the whole cost and a complex multiply per step triples it)."""
+    scaled elementwise OUTSIDE the scan: the scan step is the whole
+    cost, and a complex multiply per step would triple it."""
     p = (x * jnp.conj(x)).real if jnp.iscomplexobj(x) else x * x
     pt = jnp.moveaxis(p, -1, 0)
 

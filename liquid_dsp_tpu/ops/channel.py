@@ -5,7 +5,7 @@ Reference analog (studied, not copied): channel_cccf
 AWGN (noise floor + SNR), carrier frequency/phase offset, multipath FIR,
 log-normal shadowing through a one-pole lowpass.
 
-TPU design: one pure Proc whose carry holds the mixer phase, the
+Design: one pure Proc whose carry holds the mixer phase, the
 multipath filter tail, the shadowing filter state, and the PRNG key —
 the whole block of impairments is applied vectorized; randomness is
 jax.random (explicit key in the carry, so runs are reproducible and

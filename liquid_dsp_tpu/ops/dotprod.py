@@ -1,12 +1,12 @@
 """Kernel-layer vector primitives (the reference's L0 SIMD layer).
 
 Reference analogs: src/dotprod/src/dotprod.c (dotprod_{rrrf,crcf,cccf}),
-src/dotprod/src/sumsq.c, src/vector/src/vector_*.c.  On TPU these are VPU
-element-wise ops and MXU matmuls; XLA fuses them, so the baseline is plain
+src/dotprod/src/sumsq.c, src/vector/src/vector_*.c.  On the device these
+are element-wise ops and matmuls; XLA fuses them, so the baseline is plain
 jnp.  Batched FIR correlation — the actual hot loop every liquid module
-funnels into — lives in fir.py / kernels/fir_pallas.py.
+funnels into — lives in fir.py and kernels/pallas_chain.py.
 
-Complex convolution note: XLA TPU convolutions are real; all complex FIR
+Complex convolution note: the convolutions here are real; all complex FIR
 paths decompose into real convolutions here (3-mult Karatsuba where it wins).
 """
 from __future__ import annotations
@@ -92,7 +92,7 @@ def conv1d_real(x, h, stride: int = 1, lhs_dilation: int = 1):
     flipped internally so y[t] = sum_j h[j] * x[t*stride - j + L - 1]).
     Returns [..., (T - L)//stride + 1] (for lhs_dilation=1).
 
-    This maps onto the TPU conv/MXU path via lax.conv_general_dilated.
+    This maps onto XLA's convolution via lax.conv_general_dilated.
     """
     batch_shape = x.shape[:-1]
     t = x.shape[-1]

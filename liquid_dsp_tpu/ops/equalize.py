@@ -8,7 +8,7 @@ Reference analogs (studied, not copied):
 
 The per-sample weight update is a sequential recurrence (SURVEY.md §7
 hard-parts #1): lax.scan with carry (w, window, x2_sum / P).  Batch axes
-vectorize; the inner products are VPU/MXU work.
+vectorize; the inner products are elementwise and matmul work.
 
 Weight/filter convention: the window holds the last h_len inputs oldest-
 first; y = sum_i conj(w[i]) * buf[i]  (reference eqlms.c _execute).

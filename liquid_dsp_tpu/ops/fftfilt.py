@@ -45,16 +45,13 @@ def fftfilt(h, block_len: int | None = None, scale=1.0, name: str = "fftfilt") -
             return p
 
         # segmented overlap-save: many small batched FFTs beat one giant
-        # T-point FFT (cache-resident on CPU; batched-FFT friendly on TPU).
-        # nfft ~ 16x the tap overlap keeps the L-1 wasted lanes per segment
-        # under ~7% while the FFT stays small — the right floor for CPU
-        # caches.  On TPU larger batched FFTs amortize kernel launches:
-        # the 57-tap sweep measured 666/660/1197/1284/1341/886 Msps at
-        # nfft 1024/2048/4096/8192/16384/65536 (PERF.md late r4), so the
-        # off-CPU floor is 8192 with the same 16x-overlap escape for
-        # long taps.
-        import jax as _jax
-        floor = 512 if _jax.default_backend() == "cpu" else 8192
+        # T-point FFT.  nfft ~ 16x the tap overlap keeps the L-1 wasted
+        # lanes per segment under ~7% while the FFT stays small; the
+        # floor (platform.py "fftfilt_nfft_floor") is small on the CPU
+        # (cache-resident segments) and larger on the GPU (fewer, larger
+        # batched FFTs), with the same 16x-overlap escape for long taps.
+        from ..platform import policy
+        floor = policy("fftfilt_nfft_floor")
         if block_len is not None:
             nfft = npow2(max(block_len, 2 * L))
         else:

@@ -1,82 +1,101 @@
-"""Pallas TPU kernel: fused codebook-correlation + argmax soft decode.
+"""GPU kernel (Pallas, Triton route): fused codebook correlation + argmax
+soft decode.
 
 The device block-FEC decoder scores every candidate codeword against the
 received soft bits (max-log ML: scores = cw @ codebook, argmax — the
-reference decodes per byte on the CPU, fec_golay2412.c) and the XLA
-formulation materializes the scores tensor [..., ncw, 2^k] in HBM:
-16 KB of score traffic per 12 decoded bits for Golay(24,12), which caps
-the decoder at ~350 Mbit/s on chip — BELOW one C thread's soft decoder
-(tests/baseline_perop.json fecsoft_golay2412_dec ~500 Mbit/s).
+reference decodes per byte on the CPU, fec_golay2412.c).  The XLA
+formulation writes the scores tensor [..., ncw, 2^k] to device memory
+and reads it back for the argmax: 16 KB of score traffic per 12 decoded
+bits for Golay(24,12), since XLA does not fuse a row argmax into a GEMM.
 
-This kernel keeps the scores in VMEM: per 128-codeword tile it runs the
-[128, n] x [n, K] MXU matmul and reduces to (argmax) indices in-kernel,
-so HBM sees only the soft-bit windows in (~n floats/cw) and one int32
-out — ~170x less traffic than the XLA schedule for K=4096.
+This kernel keeps the scores on the SM: each program takes `tm`
+codewords, loops over the codebook in `tk`-column chunks, runs the
+[tm, n] x [n, tk] product on `pl.dot` at float32 (FMAs; the
+tensor-core passes tf32x3 and bf16x6 were faster on the card but
+changed a decision on 1 of 2^20 random codewords, PERF.md), and keeps
+a running max and first-index argmax in registers.  Device memory sees the soft bits in (n floats per codeword)
+and one int32 out.  n is padded to 32, the dot's minimum width.
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = ["codebook_argmax"]
 
-TM = 128      # codewords per matmul chunk (scores chunk [TM, K] in VMEM)
-SUB = 8       # chunks per grid step -> (SUB, TM) int32 output block
+NP = 32       # codeword length padded to the dot's minimum
 
 
-def _kernel(cw_ref, bip_ref, idx_ref):
-    # cw_ref [SUB*TM, n], bip_ref [n, K] -> idx_ref [SUB, TM] int32
-    for r in range(SUB):     # static unroll; scores stay in VMEM
-        s = jnp.dot(cw_ref[r * TM:(r + 1) * TM, :], bip_ref[:],
-                    preferred_element_type=jnp.float32)   # [TM, K]
-        idx_ref[r, :] = jnp.argmax(s, axis=-1).astype(jnp.int32)
+def _kernel(cw_ref, bip_ref, idx_ref, *, M, n, tm, tk, nk):
+    rows = pl.program_id(0) * tm + jnp.arange(tm, dtype=jnp.int32)
+    ok = rows < M
+    cols = jnp.arange(NP, dtype=jnp.int32)
+    a = plgpu.load(
+        cw_ref.at[jnp.broadcast_to(jnp.clip(rows, 0, M - 1)[:, None],
+                                   (tm, NP)),
+                  jnp.broadcast_to(jnp.clip(cols, 0, n - 1)[None, :],
+                                   (tm, NP))],
+        mask=ok[:, None] & (cols < n)[None, :], other=0.0)
+
+    def body(k, carry):
+        best, arg = carry
+        b = plgpu.load(bip_ref.at[:, pl.ds(k * tk, tk)])     # [NP, tk]
+        s = pl.dot(a, b, allow_tf32=False)                   # [tm, tk]
+        m = jnp.max(s, axis=1)
+        am = jnp.argmax(s, axis=1).astype(jnp.int32) + k * tk
+        upd = m > best              # strict: earlier chunks win ties
+        return jnp.where(upd, m, best), jnp.where(upd, am, arg)
+
+    init = (jnp.full((tm,), -jnp.inf, jnp.float32),
+            jnp.zeros((tm,), jnp.int32))
+    _, arg = lax.fori_loop(0, nk, body, init)
+    plgpu.store(idx_ref.at[rows], arg, mask=ok)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _call(cwf, bip, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=(
+    "tm", "tk", "num_warps", "num_stages", "interpret"))
+def _call(cwf, bip, *, tm, tk, num_warps, num_stages, interpret):
     M, n = cwf.shape
     K = bip.shape[1]
-    G = SUB * TM
-    grid = (M // G,)
-    idx = pl.pallas_call(
-        _kernel,
-        out_shape=jax.ShapeDtypeStruct((M // TM, TM), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((G, n), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, K), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((SUB, TM), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
+    kern = functools.partial(_kernel, M=M, n=n, tm=tm, tk=tk, nk=K // tk)
+    return pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct((M,), jnp.int32),
+        grid=(pl.cdiv(M, tm),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
         interpret=interpret,
+        name="codebook_argmax",
     )(cwf, bip)
-    return idx.reshape(M)
 
 
-def codebook_argmax(cw, bip, interpret: bool = False):
-    """argmax(cw @ bip, axis=-1) without materializing scores in HBM.
+def codebook_argmax(cw, bip, *, tm=128, tk=32, num_warps=4, num_stages=1,
+                    interpret: bool = False):
+    """argmax(cw @ bip, axis=-1) without writing the scores to memory.
 
-    cw: [..., ncw, n] float32 soft bits (+1/-1 LLR signs x magnitudes);
-    bip: [n, K] float32 +-1 codebook (K = 2^k candidates).
-    Returns [..., ncw] int32 — identical to the einsum+argmax result
-    (same f32 scores, same first-index tie-breaking).
+    cw: [..., ncw, n] float32 soft bits (n <= 32); bip: [n, K] +-1
+    codebook, a host numpy array (K = 2^k candidates, a multiple of tk).
+    Returns [..., ncw] int32: the einsum+argmax result (float32 scores,
+    first index on ties).  The rest is tiling (the defaults are the
+    fastest of the sweep in tools/bench_kernels.py on an H100).
     """
-    cw = jnp.asarray(cw)
-    bip = jnp.asarray(bip)
+    bip = np.asarray(bip, np.float32)
+    n, K = bip.shape
+    if n > NP or K % tk:
+        raise ValueError(f"codebook [{n}, {K}] does not fit the kernel")
+    bip_p = np.zeros((NP, K), np.float32)
+    bip_p[:n] = bip
+    cw = jnp.asarray(cw, jnp.float32)
     lead = cw.shape[:-1]
-    n = cw.shape[-1]
-    M = 1
-    for d in lead:
-        M = M * d
-    cwf = cw.reshape(M, n)
-    Mp = -(-M // (SUB * TM)) * (SUB * TM)
-    if Mp != M:
-        cwf = jnp.pad(cwf, ((0, Mp - M), (0, 0)))
-    idx = _call(cwf, bip, interpret=interpret)
-    return idx[:M].reshape(lead)
+    M = int(np.prod(lead)) if lead else 1
+    idx = _call(cw.reshape(M, n), jnp.asarray(bip_p), tm=tm, tk=tk,
+                num_warps=num_warps, num_stages=num_stages,
+                interpret=interpret)
+    return idx.reshape(lead)

@@ -4,15 +4,19 @@ Reference analog: src/nco/src/nco.c — per-sample phase accumulator with a
 256-entry sine table (LIQUID_NCO) or direct sinf/cosf (LIQUID_VCO), stepped
 one sample at a time (nco.c:134), mixed via nco_crcf_mix_down (nco.c:255).
 
-TPU design: the phase recurrence theta[t] = theta0 + t*dphi is affine in the
+Design: the phase recurrence theta[t] = theta0 + t*dphi is affine in the
 sample index, so a whole block's oscillator is one closed-form vector
 exp(j(theta0 + t*dphi)) — no sequential dependency, and the carry advance
 across a time-sharded block is likewise closed-form (carry_advance), which
 is what lets the mixer shard across devices with no communication at all.
 
-Phase is kept wrapped to [-pi, pi) every block to preserve float32 accuracy
-over unbounded streams (the reference gets this for free from uint32 phase
-wraparound; we wrap explicitly).
+The in-block phase t*dphi is computed the way the reference keeps its
+accumulator: as an integer phase step of 2^-32 turns (nco.c's uint32
+theta), multiplied by the sample index in wrapping int32 arithmetic and
+only then scaled to radians.  The float32 form theta0 + t*dphi loses
+~1e-3 rad by t = 2^18 (its magnitude reaches 3e4 rad); the integer form
+stays within ~2e-7 rad at any t.  The carry theta is wrapped to
+[-pi, pi) every block.
 """
 from __future__ import annotations
 
@@ -23,21 +27,41 @@ from jax import lax
 from ..core import Proc
 
 __all__ = ["nco", "mix_up", "mix_down", "nco_block_phases", "pll_step",
+           "phase_step", "step_phase",
            "unwrap_phase", "unwrap_phase2"]
 
 TWO_PI = 2.0 * jnp.pi
+# radians per unit of the int32 phase step (2^-32 turns)
+RAD_PER_STEP = float(2.0 * np.pi / 2.0 ** 32)
 
 
 def _wrap(theta):
     return jnp.mod(theta + jnp.pi, TWO_PI) - jnp.pi
 
 
-def nco_block_phases(theta0, dphi, T: int):
-    """Phases for one block: theta0 + [0..T)*dphi (wrapped elementwise for
-    f32 accuracy), plus the next theta0."""
-    t = jnp.arange(T, dtype=jnp.float32)
-    ph = theta0[..., None] + t * dphi[..., None] if jnp.ndim(theta0) else theta0 + t * dphi
-    theta_next = _wrap(theta0 + T * dphi)
+def phase_step(dphi: float) -> int:
+    """dphi (rad/sample) as a signed int32 phase step of 2^-32 turns,
+    rounded on the host in float64."""
+    u = int(np.round(float(dphi) / (2.0 * np.pi) * 2.0 ** 32)) % (1 << 32)
+    return u - (1 << 32) if u >= (1 << 31) else u
+
+
+def step_phase(n, step):
+    """Radians in [-pi, pi) of n samples at int32 `step`: n*step wraps
+    mod 2^32 in int32 arithmetic (exact), then scales to radians."""
+    k = jnp.asarray(n, jnp.int32) * jnp.asarray(step, jnp.int32)
+    return k.astype(jnp.float32) * np.float32(RAD_PER_STEP)
+
+
+def nco_block_phases(theta0, step, T: int):
+    """Phases for one block: theta0 + [0..T)*dphi (wrapped), plus the
+    next theta0; `step` is the int32 phase step (phase_step)."""
+    ph = step_phase(jnp.arange(T, dtype=jnp.int32), step)
+    if jnp.ndim(theta0):
+        ph = theta0[..., None] + ph
+    else:
+        ph = theta0 + ph
+    theta_next = _wrap(theta0 + step_phase(T, step))
     return _wrap(ph), theta_next
 
 
@@ -54,6 +78,7 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
     (exact sincos) behavior.
     """
     sgn = -1.0 if direction == "down" else 1.0
+    step = phase_step(dphi)
     sintab = np.sin(2.0 * np.pi * np.arange(256) / 256.0
                     ).astype(np.float32)
 
@@ -62,7 +87,7 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
 
     def apply(params, carry, x):
         T = x.shape[-1]
-        ph, theta_next = nco_block_phases(carry["theta"], params["dphi"], T)
+        ph, theta_next = nco_block_phases(carry["theta"], params["step"], T)
         if table:
             phw = jnp.mod(ph + np.pi, 2 * np.pi) - np.pi
             idx = (phw * np.float32(40.743665) + 512.5
@@ -77,7 +102,7 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
 
     def advance(params, carry, n):
         """Closed-form carry after consuming n samples (time-shard support)."""
-        return {"theta": _wrap(carry["theta"] + n * params["dphi"])}
+        return {"theta": _wrap(carry["theta"] + step_phase(n, params["step"]))}
 
     def planar_apply(params, carry, x):
         # plane-native mix (planar.py): 4 mult + 2 add on contiguous
@@ -86,7 +111,7 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
         T = r.shape[-1]
         theta = carry["theta"]
         if table:
-            ph, theta_next = nco_block_phases(theta, params["dphi"], T)
+            ph, theta_next = nco_block_phases(theta, params["step"], T)
             phw = jnp.mod(ph + np.pi, 2 * np.pi) - np.pi
             idx = (phw * np.float32(40.743665) + 512.5
                    ).astype(jnp.int32) & 0xFF
@@ -95,18 +120,15 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
         else:
             # angle addition: cos/sin of the [T] time ramp and the
             # [batch] phase offsets separately, combined with 4 mults —
-            # T + B transcendentals instead of T*B (the VPU sin/cos is
-            # ~10x the cost of an FMA; same f32 accuracy, both forms
-            # evaluate t*dphi in f32 first)
-            t = jnp.arange(T, dtype=jnp.float32)
-            phit = _wrap(t * params["dphi"])
+            # T + B transcendentals instead of T*B
+            phit = step_phase(jnp.arange(T, dtype=jnp.int32), params["step"])
             ct, st = jnp.cos(phit), jnp.sin(phit)
             cb, sb = jnp.cos(theta), jnp.sin(theta)
             if jnp.ndim(theta):
                 cb, sb = cb[..., None], sb[..., None]
             c_ = cb * ct - sb * st
             s_ = sb * ct + cb * st
-            theta_next = _wrap(theta + T * params["dphi"])
+            theta_next = _wrap(theta + step_phase(T, params["step"]))
         if sgn < 0:
             s_ = -s_
         return (r * c_ - i * s_, r * s_ + i * c_), {"theta": theta_next}
@@ -114,12 +136,12 @@ def nco(dphi: float, theta0: float = 0.0, direction: str = "down",
     def planar_init(batch_shape=(), dtype=jnp.float32):
         return {"theta": jnp.full(batch_shape, theta0, dtype=jnp.float32)}
 
-    return Proc(params={"dphi": jnp.float32(dphi),
+    return Proc(params={"step": jnp.int32(step),
                         "sintab": jnp.asarray(sintab)},
                 init=init, apply=apply,
                 rate=(1, 1), name=name, advance=advance,
                 planar_apply=planar_apply, planar_init=planar_init,
-                meta={"kind": "nco", "dphi": float(dphi),
+                meta={"kind": "nco", "dphi": float(dphi), "step": step,
                       "theta0": float(theta0), "sgn": sgn,
                       "table": bool(table)})
 

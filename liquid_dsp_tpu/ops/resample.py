@@ -11,7 +11,7 @@ Reference analogs (studied, not copied — see SURVEY.md §2.3, §3.3):
                recurrence (resamp.c:305-307) is AFFINE in the sample index,
                so a whole block's branch indices are computable in closed
                form — the sequential per-sample loop becomes one gather +
-               two batched dot products (the key TPU vectorization; SURVEY.md
+               two batched dot products (the key vectorization; SURVEY.md
                §3.3 note).
   * msresamp — src/filter/src/msresamp.c:95-135: halfband cascade brings the
                rate into (0.5, 2], then an arbitrary resamp cleans up.
@@ -260,7 +260,7 @@ def resamp(rate, m: int = 7, fc: float = 0.25, as_db: float = 60.0,
     Block constraint: T % den == 0, so each block emits exactly
     T * num / den samples and all shapes are static under jit.
 
-    TPU formulation: output k of a block lies at input position
+    Device formulation: output k of a block lies at input position
     t_k = phi + k*den/num; its base sample i_k = floor(t_k) and soft bank
     index bf = frac(t_k)*npfb select pfb branches b, b+1 whose outputs are
     linearly interpolated (reference resamp.c:275-289).  All indices are
@@ -296,14 +296,14 @@ def resamp(rate, m: int = 7, fc: float = 0.25, as_db: float = 60.0,
     Hc = jnp.asarray(Hc_host)
     params = (H, Hc)
 
-    # --- rational banded matmul (the VERDICT r3 #4 reformulation) ---
+    # --- rational banded matmul ---
     # One rectangular band matrix maps overlapped input frames straight
     # to interleaved outputs: column (p*num + c) holds class c's
     # combined taps at row offset p*den + qc[c] + 1, so a frame of
-    # tile_in inputs emits tile_in*num/den outputs as ONE MXU matmul —
-    # the per-class feature-dim-1 convs never reached the MXU (291 Msps
-    # at 3/2, PERF.md per-op table; same failure mode as the lax.conv
-    # FIR row).  Same math, same closed-form branch schedule.
+    # tile_in inputs emits tile_in*num/den outputs as ONE matmul
+    # instead of per-class feature-dim-1 convs (the policy's
+    # "resamp_banded" entry picks).  Same math, same closed-form branch
+    # schedule.
     tile_in = -(-192 // den) * den              # ~192-256, multiple of den
     P_t = tile_in // den
     tile_out = P_t * num
@@ -322,8 +322,8 @@ def resamp(rate, m: int = 7, fc: float = 0.25, as_db: float = 60.0,
     def _banded_resamp(xp, T, n_out):
         """xp [.., L+T] (tail prefix included) -> y [.., n_out]
         (the shared banded-matmul skeleton, HIGHEST precision — resamp
-        goldens are sample-exact and the TPU default is a one-pass bf16
-        multiply, CLAUDE.md)."""
+        goldens are sample-exact and a default-precision product may
+        run in TF32)."""
         from .fir import banded_blocks_apply
         return banded_blocks_apply(band_host, xp, n_out, tile_in,
                                    tile_out)
@@ -333,6 +333,7 @@ def resamp(rate, m: int = 7, fc: float = 0.25, as_db: float = 60.0,
                 "phi": jnp.zeros((), jnp.float64 if False else jnp.float32)}
 
     def apply(params, carry, x):
+        from ..platform import policy
         H_, Hc_ = params
         T = x.shape[-1]
         if T % den != 0:
@@ -343,9 +344,9 @@ def resamp(rate, m: int = 7, fc: float = 0.25, as_db: float = 60.0,
         xp = jnp.concatenate([carry["tail"].astype(x.dtype), x], axis=-1)
         use_band = num <= 64 and (
             backend == "matmul" or
-            (backend == "auto" and jax.default_backend() != "cpu"))
+            (backend == "auto" and policy("resamp_banded")))
         if use_band:
-            # banded rectangular matmul: MXU path on accelerators
+            # banded rectangular matmul (platform.py "resamp_banded")
             y = _banded_resamp(xp, T, n_out)
             new_carry = {"tail": xp[..., xp.shape[-1] - L:],
                          "phi": carry["phi"]}

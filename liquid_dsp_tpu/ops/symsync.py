@@ -8,7 +8,7 @@ error q = Re(conj(mf)*dmf) ([Mengali:1997] Eq. 8.3.5, symsync.c:530),
 407), timing phase tau advances by `del` per output with the
 resamp-style filterbank index recurrence.
 
-TPU design: the per-sample feedback loop is a lax.scan over input
+Design: the per-sample feedback loop is a lax.scan over input
 samples (SURVEY.md §7 hard part #1).  Each input step emits at most
 ceil(rate)+1 outputs; outputs are returned padded with a validity mask
 plus a count (variable-rate output, SURVEY.md §7 hard part #2).
@@ -16,12 +16,12 @@ plus a count (variable-rate output, SURVEY.md §7 hard part #2).
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 from jax import lax
 
 from ..core import Proc, scan_unroll
 from ..design.firdes import firdes_prototype
+from ..platform import policy
 
 __all__ = ["symsync", "symsync_run", "symsync_banks",
            "symsync_kaiser_banks", "symsync_kaiser"]
@@ -102,27 +102,6 @@ def _timing_update(st, q_raw, active, k_out: int, locked: bool, C,
 _STATE_KEYS = ("tau", "bf", "b", "rate", "del", "v0", "v1", "decim")
 
 
-def _use_scan_kernel(Tc: int, batch, post) -> bool:
-    """The Pallas in-VMEM timing-loop kernel replaces the lax.scan when
-    no post hook rides along, shapes fit its tiling (time steps in 32s)
-    and the channel batch is SMALL: measured crossover on chip is
-    ~B=40 (kernel 12.6/22.5/30.6 vs scan 4.6/9.5/16.1 Msps at
-    B=8/16/32 — 1.9-2.7x — but scan 54.5 vs kernel 37.3 at B=48, and
-    Mosaic's compile helper rejects B>=128; PERF.md r5).  At small B
-    the XLA scan is pure per-step dispatch overhead, which is exactly
-    what the in-VMEM kernel removes.  LIQUID_SYMSYNC_KERNEL=0/1
-    overrides (testing)."""
-    import os
-    Bf = 1
-    for d in batch:
-        Bf *= int(d)
-    fits = post is None and Tc % 32 == 0
-    ov = os.environ.get("LIQUID_SYMSYNC_KERNEL")
-    if ov is not None:
-        return ov == "1" and fits
-    return fits and Bf <= 32 and jax.default_backend() == "tpu"
-
-
 def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
                          k_out: int = 1, bw: float = 0.01,
                          locked: bool = False,
@@ -132,7 +111,7 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
     (HIGHEST-precision conv), so the scan body shrinks to the timing
     loop plus four one-hot selections of precomputed scalars.  The
     per-step window maintenance and the in-body tap-selection matmul —
-    the dominant body cost (PERF.md r4 symsync rows) — disappear; the
+    the dominant body cost — disappear; the
     branch outputs themselves are loop-INdependent (the loop only picks
     WHICH branch to read), which is what makes the hoist exact.
 
@@ -210,37 +189,6 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
         return jnp.moveaxis(a, 0, -2).reshape(
             a.shape[1:-1] + (a.shape[0] * max_out,))
 
-    use_kernel = _use_scan_kernel(Tc, batch, post)
-    Bf = int(np.prod(batch)) if batch else 1
-    interp_kernel = jax.default_backend() != "tpu"
-
-    def _kernel_inner(st, mt):
-        """The Pallas in-VMEM timing loop (no post hook): bit-identical
-        update expressions; v1 zeroed iff any loop update ran."""
-        from .kernels.pallas_symsync import symsync_scan_pallas
-        maf = mt.reshape(Tc, Bf, mt.shape[-1])
-        fs = jnp.stack([st["tau"].reshape(Bf), st["rate"].reshape(Bf),
-                        st["del"].reshape(Bf), st["v0"].reshape(Bf),
-                        st["bf"].reshape(Bf),
-                        jnp.zeros(Bf, jnp.float32)])
-        is_ = jnp.stack([st["b"].reshape(Bf),
-                         st["decim"].reshape(Bf)])
-        yre, yim, val, fso, iso = symsync_scan_pallas(
-            maf, fs, is_, npfb=npfb, G=(4 if cplx else 2),
-            max_out=max_out, k=k, k_out=k_out, bw=bw, locked=locked,
-            interpret=interp_kernel)
-        ys = (lax.complex(yre, yim) if cplx else yre).reshape(
-            (Tc,) + batch + (max_out,))
-        vs = (val > 0.5).reshape((Tc,) + batch + (max_out,))
-        ran = fso[5].reshape(batch if batch else ())
-        st2 = {"tau": fso[0].reshape(batch), "rate": fso[1].reshape(batch),
-               "del": fso[2].reshape(batch), "v0": fso[3].reshape(batch),
-               "bf": fso[4].reshape(batch),
-               "v1": jnp.where(ran > 0.5, jnp.zeros_like(st["v1"]),
-                               st["v1"]),
-               "b": iso[0].reshape(batch), "decim": iso[1].reshape(batch)}
-        return st2, ys, vs
-
     def outer_step(c, xc):
         st, pc, prefix = c
         xp = jnp.concatenate([prefix, xc], axis=-1)
@@ -251,12 +199,8 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
         else:
             ma = branch_outputs(xp)
         mt = jnp.moveaxis(ma, -2, 0)             # [Tc, .., G*npfb]
-        if use_kernel:
-            st, ys, vs = _kernel_inner(st, mt)
-            ex = ()
-        else:
-            (st, pc), (ys, vs, ex) = lax.scan(inner_step, (st, pc), mt,
-                                              unroll=scan_unroll(16))
+        (st, pc), (ys, vs, ex) = lax.scan(inner_step, (st, pc), mt,
+                                          unroll=scan_unroll(16))
         ys = _flatten_t(ys)
         vs = _flatten_t(vs)
         ex = tuple(_flatten_t(e) for e in ex)
@@ -298,14 +242,14 @@ def symsync_run(mf_bank, dmf_bank, carry, x, k: int, k_out: int = 1,
                 bw: float = 0.01, locked: bool = False, hoist=None):
     """Run the synchronizer over a block; returns (y, valid, carry').
 
-    hoist=None picks the hoisted-MF formulation off CPU (see
-    _symsync_run_hoisted; 62.8 -> 92.5 Msps at B=256, PERF.md r5);
-    the CPU default keeps the original scan body (golden bit-compat).
+    hoist=None takes the platform policy's "symsync_hoist" entry
+    (platform.py): the hoisted-MF formulation (_symsync_run_hoisted) or
+    the original scan body (golden bit-compat on the CPU).
     Blocks with no chunk divisor <= 4096 (large primes) stay on the
     scan path — a single-chunk hoist would materialize the whole
     [.., T, 2*npfb] branch-output buffer."""
     if hoist is None:
-        hoist = (jax.default_backend() != "cpu"
+        hoist = (policy("symsync_hoist")
                  and _hoist_chunk(int(x.shape[-1])) <= 4096)
     if hoist and x.shape[-1] >= 2:
         return _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k,
@@ -320,15 +264,15 @@ def symsync_run(mf_bank, dmf_bank, carry, x, k: int, k_out: int = 1,
     both_j = jnp.asarray(np.concatenate(
         [mf_bank[:, ::-1], dmf_bank[:, ::-1]], axis=1))
     iota = jnp.arange(npfb, dtype=jnp.int32)
-    on_tpu = jax.default_backend() == "tpu"
+    onehot = policy("symsync_onehot_select")
 
     def bank_sel(bank, bc):
-        """Branch-b taps, gather-free on TPU: traced-index gathers
-        serialize (CLAUDE.md; 36x measured on the receiver), so select
-        via a one-hot matmul.  HIGHEST precision keeps the selection
-        exact (a bf16 one-pass matmul would round the tap VALUES, and
-        the goldens are sample-exact).  CPU keeps the cheap gather."""
-        if on_tpu:
+        """Branch-b taps: a one-hot matmul where the platform policy
+        says so ("symsync_onehot_select", platform.py — traced-index
+        gathers serialized on the accelerator this was first tuned on;
+        not measured on H100), else the gather.  HIGHEST precision keeps the
+        selection exact (the goldens are sample-exact)."""
+        if onehot:
             oh = (bc[..., None] == iota).astype(bank.dtype)
             return jnp.einsum("...b,bj->...j", oh, bank,
                               precision=lax.Precision.HIGHEST)
@@ -342,7 +286,7 @@ def symsync_run(mf_bank, dmf_bank, carry, x, k: int, k_out: int = 1,
         cplx = jnp.iscomplexobj(win)
         # real-plane window dots: taps are REAL, so mf/dmf split into
         # two real dots per plane instead of complex-promoted einsums
-        # (the same all-real-body trick as agc_scan, PERF.md late r4)
+        # (the same all-real-body trick as agc_scan)
         wr = jnp.real(win) if cplx else win
         wi = jnp.imag(win) if cplx else None
 

@@ -1,15 +1,17 @@
 """Device-mesh construction for sharded stream processing.
 
 The reference is single-threaded C with no parallel axes (SURVEY.md §2.12);
-the parallel design here is new, TPU-native:
+the parallel design here is new:
 
   * axis "ch" — data parallelism over independent channels (the analog of
     firpfbch's M independent channel streams, reference firpfbch.c:383)
   * axis "t"  — sequence parallelism over contiguous time blocks, with
-    filter-tail halos exchanged between neighbors over ICI (ppermute)
+    filter-tail halos exchanged between neighbors (ppermute)
 
-Multi-host extends the same axes over DCN: time-sharding should map "t" to
-intra-host ICI rings and "ch" across hosts (channels never communicate).
+The GPUs of one host are joined all to all by NVLink, every pair at the
+same rate, so the mesh follows the algorithm alone: any device order
+serves the halo exchange equally.  Across hosts, keep "t" inside a host
+and put "ch" across hosts (channels never communicate).
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ __all__ = ["stream_mesh", "P", "NamedSharding"]
 def stream_mesh(n_time: int = 1, n_channel: int = 1, devices=None) -> Mesh:
     """Create a (ch, t) mesh.  n_time * n_channel must equal device count.
 
-    Time-neighbors are placed adjacent in device order so halo ppermutes
-    ride nearest-neighbor ICI links.
+    Devices fill the mesh in the given order; on an all-to-all NVLink
+    host the order does not change the halo cost.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_time * n_channel != len(devices):

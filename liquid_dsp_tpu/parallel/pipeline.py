@@ -2,7 +2,7 @@
 
 The reference composes DSP objects sequentially in one thread (SURVEY.md
 §2.12: "pipeline across chain stages" has no reference analog).  The
-TPU-native design places each stage of a chain on its OWN device (or
+design places each stage of a chain on its OWN device (or
 device group), with stage state (params + carry) resident on that
 device.  Blocks flow stage-to-stage over the interconnect.
 
@@ -11,7 +11,7 @@ dependencies per buffer, so a host loop that enqueues block i+1 into
 stage 0 while block i sits in stage 1 gets true cross-group overlap —
 device s computes stage s of block i while device s-1 computes stage
 s-1 of block i+1.  No collective is needed; the inter-stage transfer is
-a point-to-point device-to-device copy (ICI when both are TPU chips).
+a point-to-point device-to-device copy (NVLink between GPUs of a host).
 
 Semantics are identical to running `chain(*procs)` on one device: the
 pipeline only changes WHERE each stage executes, asserted by the

@@ -1,6 +1,6 @@
 """Time-sharded streaming receiver: the SURVEY §2.12 sequence-parallel
-axis applied to a detect-everywhere framer (VERDICT r4 item 3 — the one
-genuinely hard sharding design in this framework; reference analog:
+axis applied to a detect-everywhere framer (the one genuinely hard
+sharding design in this framework; reference analog:
 framesync64.c:241-269, whose state machine is single-threaded
 per-sample and cannot split the time axis at all).
 
@@ -32,7 +32,7 @@ Halo bytes per block step and shard: (hist + Lb) * 8 B samples + one
 f32 + ~2 * n_seg words gathered — frame64 (hist 1536, Lb 25): ~12.5 KB
 per shard-step, i.e. 38% of a T_local = 4096 shard payload (32 KB),
 19% at 8192, 4.8% at 32768 — so time-sharding wants long per-shard
-blocks; the exchange is one nearest-neighbor ICI hop plus a tiny
+blocks; the exchange is one nearest-neighbor hop plus a tiny
 all-gather.
 """
 from __future__ import annotations

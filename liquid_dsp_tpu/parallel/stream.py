@@ -6,7 +6,7 @@ Mapping from reference mechanisms (SURVEY.md §2.12, §5):
   * firfilt/fftfilt tail state (reference fftfilt.c:259 saved tail) ->
     `halo` procs: each device ppermutes its last `halo` input samples to its
     right time-neighbor; device 0 uses the inter-call carry.  One
-    nearest-neighbor ICI hop, overlapping-save semantics, bit-identical to
+    nearest-neighbor hop, overlapping-save semantics, bit-identical to
     the single-device stream.
   * phase accumulators (NCO theta, resamp tau — affine in sample index,
     reference resamp.c:305) -> `advance` procs: each shard computes its
@@ -118,7 +118,7 @@ def time_shard_apply(proc: Proc, mesh: Mesh, time_axis: str = "t",
     # channel_axis may be a TUPLE of mesh axis names — the hierarchical
     # (dcn, ici) layout of SURVEY §5: the leading batch/channel dim is
     # data-parallel over the product of those axes (e.g. hosts x chips),
-    # while the time axis halo-exchanges over its own (intra-ICI) axis.
+    # while the time axis halo-exchanges over its own axis.
     ch_axes = (channel_axis if isinstance(channel_axis, (tuple, list))
                else (channel_axis,)) if channel_axis is not None else ()
     if isinstance(channel_axis, (tuple, list)):

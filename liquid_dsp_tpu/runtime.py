@@ -28,7 +28,7 @@ class StreamRunner:
 
     Blocks must share one shape (pad the final block — io.iq_stream
     does).  The carry lives on device between blocks; params are passed
-    as jit arguments (required by the TPU backend — PERF.md).
+    as jit arguments, so one compile serves every block.
     """
 
     def __init__(self, proc: Proc, batch_shape=(), dtype=jnp.complex64,

@@ -4,8 +4,8 @@ Reference analog (studied, not copied): reference src/matrix/src/
 (matrix.*.c: add/aug/mul/trans/LU/QR/Cholesky/inverse/linsolve/cgsolve/
 gramschmidt; smatrix.c sparse bool/float/int).
 
-Thin, explicitly-named wrappers over jnp linear algebra (MXU-backed on
-TPU) with the reference's conventions (row-major flat arrays in the
+Thin, explicitly-named wrappers over jnp linear algebra with the
+reference's conventions (row-major flat arrays in the
 golden vectors; Doolittle LU with P*A = L*U; reduced QR; lower Cholesky).
 """
 from __future__ import annotations

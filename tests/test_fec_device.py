@@ -237,7 +237,7 @@ class TestConvDeviceDecoder:
     def test_flexframe_stream_conv_payload_device_path(self):
         """A v27-coded flexframe payload decodes through the streaming
         receiver using the DEVICE Viterbi (the config previously fell
-        back to host decode silently — VERDICT r3 weak #5)."""
+        back to host decode silently)."""
         from liquid_dsp_tpu.framing.flexframe import (flexframegen,
                                                       FlexFrameSync)
         rng = np.random.default_rng(9)
@@ -323,9 +323,10 @@ class TestDevicePacketFinish:
 
 
 class TestPallasCodebookArgmax:
-    """The fused Pallas codebook-argmax kernel (ops/kernels/
-    pallas_codebook.py) must be value-identical to the einsum+argmax
-    path it replaces off CPU (same f32 scores, same tie-breaking)."""
+    """The fused codebook-argmax GPU kernel (ops/kernels/
+    pallas_codebook.py, run here in interpret mode) must be
+    value-identical to the einsum+argmax path it replaces on the GPU
+    (same f32 scores, same tie-breaking)."""
 
     @pytest.mark.parametrize("scheme", ["golay2412", "hamming1511"])
     def test_matches_einsum(self, scheme):
@@ -351,3 +352,32 @@ class TestPallasCodebookArgmax:
         got = np.asarray(codebook_argmax(
             jnp.asarray(cw), jnp.asarray(bip), interpret=True))
         assert (got == 0).all()
+
+    @pytest.mark.parametrize("scheme", ["golay2412", "hamming1511"])
+    def test_quantized_scores_and_cross_chunk_ties(self, scheme):
+        # soft bits on a 2^-6 grid make every score exact in f32, so any
+        # summation order gives the same scores; duplicate codebook
+        # columns in different K chunks make exact ties, which must go
+        # to the first index
+        from liquid_dsp_tpu.fec.device import block_codebook
+        from liquid_dsp_tpu.ops.kernels.pallas_codebook import \
+            codebook_argmax
+        bip, n, k = block_codebook(scheme)
+        K = bip.shape[1]
+        rng = np.random.default_rng(k)
+        cw = (np.round(rng.standard_normal((3, 70, n)) * 64) / 64
+              ).astype(np.float32)
+        want = np.argmax(cw.astype(np.float64) @ bip, axis=-1)
+        bip_t = bip.copy()
+        bip_t[:, K - 1] = bip[:, want[0, 0]]     # tie in the last chunk
+        got = np.asarray(codebook_argmax(cw, bip_t, interpret=True))
+        np.testing.assert_array_equal(got, want)
+        assert K in (2048, 4096)
+
+    def test_rejects_codebook_that_does_not_fit(self):
+        from liquid_dsp_tpu.ops.kernels.pallas_codebook import \
+            codebook_argmax
+        with pytest.raises(ValueError):
+            codebook_argmax(np.zeros((4, 40), np.float32),
+                            np.ones((40, 2048), np.float32),
+                            interpret=True)

@@ -2,7 +2,7 @@
 geometry resolved mid-stream, every frame decodes exactly once across
 block boundaries, under impairments, with mixed schemes — the
 reference's callback-per-frame re-arm semantics (reference
-src/framing/src/flexframesync.c) realized as a two-stage TPU pipeline
+src/framing/src/flexframesync.c) realized as a two-stage device pipeline
 (jittable header-stage Proc + bucketed payload gather)."""
 import numpy as np
 import jax
@@ -283,9 +283,9 @@ class TestFlexFullDeviceRX:
 
 
 class TestMultiConfigDeviceRX:
-    """Header-adaptive full-device receiver (flexframe_rx_stream_multi,
-    VERDICT r4 item 4): a registered SET of payload configs decodes in
-    one stream on device; unregistered configs report hdr_ok False."""
+    """Header-adaptive full-device receiver (flexframe_rx_stream_multi):
+    a registered SET of payload configs decodes in one stream on device;
+    unregistered configs report hdr_ok False."""
 
     CONFIGS = [(48, "crc32", "none", "golay2412", "qpsk"),
                (96, "crc16", "none", "hamming128", "qam16"),

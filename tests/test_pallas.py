@@ -1,55 +1,15 @@
-"""Pallas kernel tests (interpret mode on CPU; real-hardware path is
-exercised by tools/bench_suite.py on a TPU)."""
+"""firfilt backend='matmul': the banded-tap matrix formulation against
+the XLA convolution it stands in for."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from conftest import assert_close
-from liquid_dsp_tpu.ops.kernels.pallas_fir import (fir_apply_pallas,
-                                                   make_banded_taps, TILE)
-from liquid_dsp_tpu.ops.fir import fir_apply, firfilt
+from liquid_dsp_tpu.ops.fir import fir_apply, firfilt, fir_apply_matmul
 from liquid_dsp_tpu.design.firdes import firdes_kaiser
 
 
-class TestPallasFIR:
-    def test_banded_structure(self):
-        h = np.arange(1, 5, dtype=np.float32)
-        Hb = make_banded_taps(h)
-        assert Hb.shape == (4 + TILE - 1, TILE)
-        # column t contains h reversed starting at row t
-        np.testing.assert_array_equal(Hb[0:4, 0], h[::-1])
-        np.testing.assert_array_equal(Hb[7:11, 7], h[::-1])
-
-    @pytest.mark.parametrize("L,T,B", [(64, 512, 3), (13, 256, 1),
-                                       (129, 384, 2)])
-    def test_matches_conv(self, L, T, B):
-        rng = np.random.default_rng(L)
-        h = firdes_kaiser(L, 0.2, 60.0).astype(np.float32)
-        x = jnp.asarray((rng.standard_normal((B, T)) +
-                         1j * rng.standard_normal((B, T))
-                         ).astype(np.complex64))
-        carry = jnp.asarray((rng.standard_normal((B, L - 1)) +
-                             1j * rng.standard_normal((B, L - 1))
-                             ).astype(np.complex64))
-        y_ref, c_ref = fir_apply(jnp.asarray(h), carry, x)
-        y_p, c_p = fir_apply_pallas(h, carry, x, interpret=True)
-        assert_close(np.asarray(y_p), np.asarray(y_ref), tol=1e-4)
-        assert_close(np.asarray(c_p), np.asarray(c_ref), tol=1e-6)
-
-    def test_firfilt_pallas_backend(self, golden):
-        d = golden("firfilt_crcf_data_h13x32")
-        q = firfilt(d["h"], backend="pallas")
-        y, _ = q(jnp.asarray(d["x"]), batch_shape=())
-        assert_close(np.asarray(y), d["y"], tol=1e-3)
-
-    def test_complex_taps_rejected(self):
-        with pytest.raises(ValueError):
-            firfilt(np.ones(8, np.complex64), backend="pallas")
-
-
 class TestMatmulFIR:
-    """firfilt backend='matmul': banded-tap-matrix formulation
-    (MXU-shaped on TPU; see PERF.md)."""
+    """firfilt backend='matmul': banded-tap-matrix formulation."""
 
     def test_matches_xla_backend(self):
         import numpy as np
@@ -85,3 +45,31 @@ class TestMatmulFIR:
             ys.append(np.asarray(yb))
         d = np.abs(np.concatenate(ys, -1) - np.asarray(y_once)).max()
         assert d < 1e-5
+
+    @pytest.mark.parametrize("L,T,B", [(64, 512, 3), (13, 256, 1),
+                                       (129, 384, 2)])
+    def test_banded_matches_conv(self, L, T, B):
+        # the banded matmul the GPU policy selects, against the conv
+        # form at the shapes the removed hand-written FIR kernel covered
+        rng = np.random.default_rng(L)
+        h = firdes_kaiser(L, 0.2, 60.0).astype(np.float32)
+        x = jnp.asarray((rng.standard_normal((B, T)) +
+                         1j * rng.standard_normal((B, T))
+                         ).astype(np.complex64))
+        carry = jnp.asarray((rng.standard_normal((B, L - 1)) +
+                             1j * rng.standard_normal((B, L - 1))
+                             ).astype(np.complex64))
+        y_ref, c_ref = fir_apply(jnp.asarray(h), carry, x)
+        y_m, c_m = fir_apply_matmul(jnp.asarray(h), carry, x)
+        assert np.abs(np.asarray(y_m) - np.asarray(y_ref)).max() < 1e-4
+        assert np.abs(np.asarray(c_m) - np.asarray(c_ref)).max() < 1e-6
+
+    def test_firfilt_matmul_golden(self, golden):
+        d = golden("firfilt_crcf_data_h13x32")
+        q = firfilt(d["h"], backend="matmul")
+        y, _ = q(jnp.asarray(d["x"]), batch_shape=())
+        assert np.abs(np.asarray(y) - d["y"]).max() <= 1e-3
+
+    def test_unknown_backend_rejected(self):
+        with pytest.raises(ValueError):
+            firfilt(np.ones(8, np.float32), backend="pallas")

@@ -263,7 +263,7 @@ class TestStagePipeline:
 
 
 # ---------------------------------------------------------------------------
-# Streaming RECEIVERS under the device mesh (VERDICT r3 item 2): the
+# Streaming RECEIVERS under the device mesh: the
 # north-star RX chain sharded over channels, frames straddling block
 # AND shard boundaries decoding exactly once, sharded == single-device.
 

@@ -59,7 +59,7 @@ class TestGammaFamily:
             math.exp(-2.0), rel=1e-5)
 
     def test_marcumq1_large_ab(self):
-        # ADVICE r3: a fixed 64-term Bessel series gave percent-level
+        # a fixed 64-term Bessel series gave percent-level
         # error for alpha*beta > ~400; term count now scales with a*b
         # and lnbesseli is log-sum-exp (no under/overflow).  References
         # are scipy ncx2.sf(b^2, 2, a^2) == Q1(a, b).

@@ -141,3 +141,25 @@ def _check_proc_on(proc, x, rtol=2e-4):
     y_p = _run_planar(proc, [x], x.shape[:-1])
     rms = np.sqrt(np.mean(np.abs(y_c) ** 2)) + 1e-30
     assert np.abs(y_p - y_c).max() / rms < rtol
+
+
+def test_nco_phase_exact_over_long_blocks():
+    # the in-block phase is an int32 multiple of 2^-32 turns, so sample
+    # t = 2^18 - 1 is as exact as sample 0 (a float32 t*dphi loses ~1e-3
+    # rad there); both the complex and the planar paths, and the carry
+    # into the next block
+    T = 1 << 18
+    dphi = 0.37
+    p = nco(dphi=dphi, direction="up")
+    x = jnp.ones((T,), jnp.complex64)
+    y, c = p.apply(p.params, p.init(), x)
+    step = (np.round(dphi / (2 * np.pi) * 2.0 ** 32)) * 2 * np.pi / 2.0 ** 32
+    t = np.arange(T, dtype=np.float64)
+    want = np.exp(1j * step * t)
+    assert np.abs(np.asarray(y) - want).max() < 2e-6
+    (yr, yi), _ = planar(p).apply(p.params, p.init(),
+                                  (jnp.ones(T), jnp.zeros(T)))
+    assert np.abs(np.asarray(yr) + 1j * np.asarray(yi) - want).max() < 2e-6
+    y2, _ = p.apply(p.params, c, x[:4])
+    want2 = np.exp(1j * step * (T + np.arange(4)))
+    assert np.abs(np.asarray(y2) - want2).max() < 2e-6

@@ -299,7 +299,7 @@ class TestMsresamp2Golden:
 
 
 class TestResampBandedBackend:
-    """The banded rectangular matmul (accelerator path, VERDICT r3 #4)
+    """The banded rectangular matmul (accelerator path)
     must match the conv formulation sample-exactly across rates, dtypes,
     and block boundaries — on CPU both backends are forced explicitly."""
 

@@ -3,7 +3,7 @@ must decode exactly the frames the 1-device receiver decodes — with
 frames deliberately STRADDLING shard boundaries — and the carry
 (buffer/watermark) must replicate so multi-block streams stay
 equivalent.  Runs on the conftest-forced 8-virtual-device CPU mesh
-(SURVEY §2.12 sequence parallelism; VERDICT r4 item 3)."""
+(SURVEY §2.12 sequence parallelism)."""
 import numpy as np
 import jax
 import jax.numpy as jnp

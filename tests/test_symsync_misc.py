@@ -416,30 +416,43 @@ class TestIirResampGolden:
         assert np.abs(np.asarray(yi) - fg["iiri_y"]).max() < 1e-5
 
 
-class TestPallasScanKernel:
-    """The in-VMEM Pallas timing-loop kernel (ops/kernels/
-    pallas_symsync.py) must be BIT-identical to the hoisted scan path
-    (same update expressions; validated in interpret mode here and on
-    hardware by tools/check_onchip_goldens.py)."""
+class TestSymsyncFormulations:
+    """The GPU policy's symsync and symtrack formulations (hoisted
+    matched filters; PLL+LMS fused into the scan) against the scan-body
+    forms the CPU runs: same valid pattern, outputs within the
+    reassociation of the matched-filter dots."""
 
-    def test_kernel_matches_scan(self, monkeypatch):
+    @pytest.mark.parametrize("batch,T", [((2,), 1024), ((), 2048)])
+    def test_hoisted_matches_scan(self, batch, T):
         from liquid_dsp_tpu.ops.symsync import symsync_banks, symsync_run
         rng = np.random.default_rng(13)
         mf, dmf = symsync_banks("arkaiser", 2, 5, 0.3, 32)
         q = symsync("arkaiser", 2, 5, 0.3, bw=0.02)
-        for batch, T in (((2,), 1024), ((), 2048)):
-            x = (rng.standard_normal(batch + (T,))
-                 + 1j * rng.standard_normal(batch + (T,))
-                 ).astype(np.complex64)
-            c0 = q.init(batch)
-            monkeypatch.setenv("LIQUID_SYMSYNC_KERNEL", "0")
-            y1, v1, c1 = symsync_run(mf, dmf, c0, jnp.asarray(x), 2,
-                                     bw=0.02, hoist=True)
-            monkeypatch.setenv("LIQUID_SYMSYNC_KERNEL", "1")
-            y2, v2, c2 = symsync_run(mf, dmf, c0, jnp.asarray(x), 2,
-                                     bw=0.02, hoist=True)
-            np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
-            np.testing.assert_array_equal(np.asarray(y1), np.asarray(y2))
-            for kk in c1:
-                np.testing.assert_allclose(
-                    np.asarray(c1[kk]), np.asarray(c2[kk]), atol=0)
+        x = (rng.standard_normal(batch + (T,))
+             + 1j * rng.standard_normal(batch + (T,))).astype(np.complex64)
+        c0 = q.init(batch)
+        y1, v1, c1 = symsync_run(mf, dmf, c0, jnp.asarray(x), 2, bw=0.02,
+                                 hoist=False)
+        y2, v2, c2 = symsync_run(mf, dmf, c0, jnp.asarray(x), 2, bw=0.02,
+                                 hoist=True)
+        np.testing.assert_array_equal(np.asarray(v1), np.asarray(v2))
+        assert np.abs(np.asarray(y1) - np.asarray(y2)).max() < 1e-4
+        assert np.abs(np.asarray(c1["tau"]) -
+                      np.asarray(c2["tau"])).max() < 1e-4
+
+    def test_symtrack_fused_matches_unfused(self):
+        from liquid_dsp_tpu.framing.symtrack import symtrack_stream
+        rng = np.random.default_rng(33)
+        B, T = 2, 1024
+        x = jnp.asarray((rng.standard_normal((B, T)) +
+                         1j * rng.standard_normal((B, T))
+                         ).astype(np.complex64))
+        outs = []
+        for fused in (False, True):
+            p = symtrack_stream(fused=fused)
+            (y, d, v), _ = p.apply((), p.init((B,)), x)
+            outs.append((np.asarray(y), np.asarray(d), np.asarray(v)))
+        (ya, da, va), (yb, db, vb) = outs
+        np.testing.assert_array_equal(va, vb)
+        np.testing.assert_array_equal(da[va], db[vb])
+        assert np.abs(ya - yb)[va].max() < 1e-3

@@ -1,17 +1,16 @@
 #!/usr/bin/env python
-"""On-chip channelizer throughput: the four fused banded-MXU matmul
+"""On-device channelizer throughput: the four fused banded-matmul
 channelizers (multichannel/channelizer.py; reference analog
 src/multichannel/src/firpfbch.c:37-405 / firpfbch2.c:36-337).
 
-Reproduces the r3 ad-hoc measurements (PERF.md "Channelizer") as a
-repeatable tool so bench_compare.py can diff them round over round.
+A repeatable timing of the channelizers at one shape.
 Methodology = bench_suite: single dispatch per block, carry chained
 trial to trial, checksum read back inside the timed region, two-point
 calibration.  Throughput is WIDEBAND samples/s (analyzers: input rate;
 synthesizers: output rate).
 
 Usage: python tools/bench_channelizer.py [M] [B] [T]
-       (defaults 64 16 65536, the PERF.md shape)
+       (defaults 64 16 65536)
 """
 import json
 import pathlib
@@ -23,10 +22,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main():
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from jax import lax

@@ -58,7 +58,7 @@ def main():
             def step_chk(llr, chk):
                 msgs = dfn(llr)
                 # fold checksum AND feed it back into the input so trials
-                # serialize (value-verified, PERF.md methodology)
+                # serialize (value-verified)
                 s = jnp.sum(msgs[:8, 0]).astype(jnp.float32)
                 return llr + 0.0 * s, chk + s
 

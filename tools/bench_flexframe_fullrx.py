@@ -15,11 +15,8 @@ Prints one JSON line:
   {"metric": "flexframe_full_rx", "msps": ..., ...}
 """
 import json
-import os
 import pathlib
-import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -30,9 +27,6 @@ PAYLOAD_LEN = 64
 
 
 def main():
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from liquid_dsp_tpu.framing.flexframe import flexframe_rx_stream
@@ -42,35 +36,26 @@ def main():
     K = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     proc = flexframe_rx_stream(T, PAYLOAD_LEN)
     print(f"backend: {jax.devices()[0].platform}", file=sys.stderr)
+    def _generate():
+        """The capture, built on the host in this process."""
+        from liquid_dsp_tpu.framing.flexframe import flexframegen
+        n = PAYLOAD_LEN
+        rng = np.random.default_rng(0)
+        x = np.zeros((K, batch, T), np.complex64)
+        hdrs, pls = [], []
+        for k in range(K):
+            for b in range(batch):
+                h = rng.integers(0, 256, 14).astype(np.uint8)
+                p = rng.integers(0, 256, n).astype(np.uint8)
+                f = flexframegen(h, p)
+                s0 = int(rng.integers(64, T - len(f) - 64))
+                x[k, b, s0:s0 + len(f)] += f
+                hdrs.append(h); pls.append(p)
+        x += (0.005 * (rng.standard_normal(x.shape) +
+                       1j * rng.standard_normal(x.shape))).astype(np.complex64)
+        return x, np.stack(hdrs), np.stack(pls)
 
-    gen = (
-        "import os; os.environ['JAX_PLATFORMS']='cpu'\n"
-        "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "import numpy as np, sys\n"
-        "sys.path.insert(0, %r)\n"
-        "from liquid_dsp_tpu.framing.flexframe import flexframegen\n"
-        "K, batch, T, n = %d, %d, %d, %d\n"
-        "rng = np.random.default_rng(0)\n"
-        "x = np.zeros((K, batch, T), np.complex64)\n"
-        "hdrs, pls = [], []\n"
-        "for k in range(K):\n"
-        "    for b in range(batch):\n"
-        "        h = rng.integers(0, 256, 14).astype(np.uint8)\n"
-        "        p = rng.integers(0, 256, n).astype(np.uint8)\n"
-        "        f = flexframegen(h, p)\n"
-        "        s0 = int(rng.integers(64, T - len(f) - 64))\n"
-        "        x[k, b, s0:s0 + len(f)] += f\n"
-        "        hdrs.append(h); pls.append(p)\n"
-        "x += (0.005 * (rng.standard_normal(x.shape) +\n"
-        "               1j * rng.standard_normal(x.shape))).astype(np.complex64)\n"
-        "np.savez(sys.argv[1], x=x, hdrs=np.stack(hdrs), pls=np.stack(pls))\n"
-    ) % (str(pathlib.Path(__file__).resolve().parent.parent),
-         K, batch, T, PAYLOAD_LEN)
-    with tempfile.NamedTemporaryFile(suffix=".npz") as tf:
-        subprocess.run([sys.executable, "-c", gen, tf.name], check=True,
-                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
-        z = np.load(tf.name)
-        x, hdrs, pls = z["x"], z["hdrs"], z["pls"]
+    x, hdrs, pls = _generate()
 
     xr = jnp.asarray(x.real.copy())
     xi = jnp.asarray(x.imag.copy())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Throughput of the HEADER-ADAPTIVE full-device flexframe RX
-(flexframe_rx_stream_multi — VERDICT r4 item 4) on a MIXED-config
+(flexframe_rx_stream_multi) on a MIXED-config
 stream: frames of every registered payload configuration interleaved in
 every channel.  Methodology matches bench_flexframe_fullrx.py (K blocks
 chained in-jit, checksum readback, two-point calibration) plus a
@@ -11,11 +11,8 @@ Prints one JSON line:
   {"metric": "flexframe_multi_rx", "msps": ..., "host_loop_msps": ...}
 """
 import json
-import os
 import pathlib
-import subprocess
 import sys
-import tempfile
 import time
 
 import numpy as np
@@ -28,9 +25,6 @@ CONFIGS = [(48, "crc32", "none", "golay2412", "qpsk"),
 
 
 def main():
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from liquid_dsp_tpu.framing.flexframe import flexframe_rx_stream_multi
@@ -40,42 +34,28 @@ def main():
     K = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     proc = flexframe_rx_stream_multi(T, CONFIGS)
     print(f"backend: {jax.devices()[0].platform}", file=sys.stderr)
+    def _generate():
+        """The capture, built on the host in this process."""
+        from liquid_dsp_tpu.framing.flexframe import flexframegen
+        rng = np.random.default_rng(0)
+        x = np.zeros((K, batch, T), np.complex64)
+        hdrs, pls, cfgs = [], [], []
+        for k in range(K):
+            for b in range(batch):
+                j = int(rng.integers(0, len(CONFIGS)))
+                pl, crc, fec0, fec1, ms = CONFIGS[j]
+                h = rng.integers(0, 256, 14).astype(np.uint8)
+                p = rng.integers(0, 256, pl).astype(np.uint8)
+                f = flexframegen(h, p, crc=crc, fec0=fec0, fec1=fec1, ms=ms)
+                s0 = int(rng.integers(64, T - len(f) - 64))
+                x[k, b, s0:s0 + len(f)] += f
+                hdrs.append(h); pls.append(np.pad(p, (0, 96 - pl)))
+                cfgs.append(j)
+        x += (0.005 * (rng.standard_normal(x.shape) +
+                       1j * rng.standard_normal(x.shape))).astype(np.complex64)
+        return x, np.stack(hdrs), np.stack(pls), np.asarray(cfgs)
 
-    gen = (
-        "import os; os.environ['JAX_PLATFORMS']='cpu'\n"
-        "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "import numpy as np, sys\n"
-        "sys.path.insert(0, %r)\n"
-        "from liquid_dsp_tpu.framing.flexframe import flexframegen\n"
-        "CONFIGS = %r\n"
-        "K, batch, T = %d, %d, %d\n"
-        "rng = np.random.default_rng(0)\n"
-        "x = np.zeros((K, batch, T), np.complex64)\n"
-        "hdrs, pls, cfgs = [], [], []\n"
-        "for k in range(K):\n"
-        "    for b in range(batch):\n"
-        "        j = int(rng.integers(0, len(CONFIGS)))\n"
-        "        pl, crc, fec0, fec1, ms = CONFIGS[j]\n"
-        "        h = rng.integers(0, 256, 14).astype(np.uint8)\n"
-        "        p = rng.integers(0, 256, pl).astype(np.uint8)\n"
-        "        f = flexframegen(h, p, crc=crc, fec0=fec0,"
-        " fec1=fec1, ms=ms)\n"
-        "        s0 = int(rng.integers(64, T - len(f) - 64))\n"
-        "        x[k, b, s0:s0 + len(f)] += f\n"
-        "        hdrs.append(h); pls.append(np.pad(p, (0, 96 - pl)))\n"
-        "        cfgs.append(j)\n"
-        "x += (0.005 * (rng.standard_normal(x.shape) +\n"
-        "               1j * rng.standard_normal(x.shape)))"
-        ".astype(np.complex64)\n"
-        "np.savez(sys.argv[1], x=x, hdrs=np.stack(hdrs),"
-        " pls=np.stack(pls), cfgs=np.asarray(cfgs))\n"
-    ) % (str(pathlib.Path(__file__).resolve().parent.parent),
-         CONFIGS, K, batch, T)
-    with tempfile.NamedTemporaryFile(suffix=".npz") as tf:
-        subprocess.run([sys.executable, "-c", gen, tf.name], check=True,
-                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
-        z = np.load(tf.name)
-        x, hdrs, pls, cfgs = z["x"], z["hdrs"], z["pls"], z["cfgs"]
+    x, hdrs, pls, cfgs = _generate()
 
     xr = jnp.asarray(x.real.copy())
     xi = jnp.asarray(x.imag.copy())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Throughput of the GMSK streaming receiver's TPU-resident detection
+"""Throughput of the GMSK streaming receiver's device-resident detection
 stage (detect-everywhere correlation vs the GMSK-modulated preamble
 template + per-candidate refinement), batched over channels — the
 fourth receiver family next to bench_frame64_rx / bench_flexframe_rx /
@@ -20,10 +20,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main():
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from liquid_dsp_tpu.framing.gmskframe import _template
@@ -36,34 +32,25 @@ def main():
                            max_frames=8)
     print(f"backend: {jax.devices()[0].platform}", file=sys.stderr)
 
-    import subprocess
-    import tempfile
-    gen = (
-        "import os; os.environ['JAX_PLATFORMS']='cpu'\n"
-        "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "import numpy as np, sys\n"
-        "sys.path.insert(0, %r)\n"
-        "from liquid_dsp_tpu.framing.gmskframe import gmskframegen\n"
-        "batch, T = %d, %d\n"
-        "rng = np.random.default_rng(0)\n"
-        "x = np.zeros((batch, T), np.complex64)\n"
-        "for b in range(batch):\n"
-        "    pos = 300\n"
-        "    while True:\n"
-        "        h = rng.integers(0, 256, 8).astype(np.uint8)\n"
-        "        p = rng.integers(0, 256, 40).astype(np.uint8)\n"
-        "        f = gmskframegen(h, p)\n"
-        "        if pos + len(f) + 300 > T: break\n"
-        "        x[b, pos:pos + len(f)] += f.astype(np.complex64)\n"
-        "        pos += len(f) + int(rng.integers(1500, 4000))\n"
-        "x += (0.01 * (rng.standard_normal(x.shape) +\n"
-        "              1j * rng.standard_normal(x.shape))).astype(np.complex64)\n"
-        "np.save(sys.argv[1], x)\n"
-    ) % (str(pathlib.Path(__file__).resolve().parent.parent), batch, T)
-    with tempfile.NamedTemporaryFile(suffix=".npy") as tf:
-        subprocess.run([sys.executable, "-c", gen, tf.name], check=True,
-                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
-        x = np.load(tf.name)
+    def _generate():
+        """The capture, built on the host in this process."""
+        from liquid_dsp_tpu.framing.gmskframe import gmskframegen
+        rng = np.random.default_rng(0)
+        x = np.zeros((batch, T), np.complex64)
+        for b in range(batch):
+            pos = 300
+            while True:
+                h = rng.integers(0, 256, 8).astype(np.uint8)
+                p = rng.integers(0, 256, 40).astype(np.uint8)
+                f = gmskframegen(h, p)
+                if pos + len(f) + 300 > T: break
+                x[b, pos:pos + len(f)] += f.astype(np.complex64)
+                pos += len(f) + int(rng.integers(1500, 4000))
+        x += (0.01 * (rng.standard_normal(x.shape) +
+                      1j * rng.standard_normal(x.shape))).astype(np.complex64)
+        return x
+
+    x = _generate()
 
     xr = jnp.asarray(x.real.copy())
     xi = jnp.asarray(x.imag.copy())

@@ -1,5 +1,5 @@
 """Measure the reference C library's ofdmflexframesync throughput on
-this host (single thread, -O2) — the honest baseline for PERF.md's
+this host (single thread, -O2) — the honest baseline for the
 OFDM-flexframe full-RX comparison (methodology identical to
 bench_reference_rx.py; stream mirrors tools/bench_ofdmflex_rx.py:
 M=64 cp=16 taper=0 default allocation, 64-byte qpsk payload,

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Measure the reference C library's per-op single-thread throughput on
-this host for EVERY family in the TPU per-op tables (PERF.md), giving
-each row a measured reference-C denominator (VERDICT r4 item 1: the
-"matching-or-beating" claim needs a C column for the whole table, not
-just the chain + receivers).
+this host for every family of the per-op suite (tools/bench_suite.py),
+giving each row a measured reference-C context column
+(tests/baseline_perop.json).
 
 Configs mirror tools/bench_suite.py / tools/bench_timing_family.py
 exactly (tap counts, orders, schemes); the loop shapes mirror the
@@ -16,7 +15,7 @@ dotprod rows, Mbit/s decoded for FEC rows, Msym/s for modem rows).
 NOT measurable with this build: conv (v27..) and RS decode — the
 reference delegates those to the external libfec library
 (include/liquid.internal.h:42 LIBFEC_ENABLED; fec_conv.c:284 returns
-NULL without it), which is not present on this host.  The TPU build
+NULL without it), which is not present on this host.  This library
 decodes them natively (fec/conv.py, fec/rs.py, fec/device.py).
 """
 import json
@@ -245,7 +244,7 @@ int main() {
         iirdecim_crcf_destroy(q);
         iirinterp_crcf g = iirinterp_crcf_create_default(4, 4);
         /* INPUT-sample units (N/4 inputs -> N outputs), matching the
-           TPU suite row */
+           device suite row */
         BENCH("iirinterp4", N / 4,
               for (i = 0; i + 4 <= N; i += 4)
                   iirinterp_crcf_execute(g, x[i / 4], &y[i]););
@@ -330,7 +329,7 @@ int main() {
         }
     }
     /* ---- SOFT decode (fec_decode_soft, liquid.h:953): the
-       apples-to-apples row for the TPU device soft decoders */
+       apples-to-apples row for the device soft decoders */
     {
         unsigned char md[64], me[512], sb[4096];
         for (i = 0; i < 64; i++) md[i] = (unsigned char)(i * 37);
@@ -381,8 +380,8 @@ int main() {
     }
 
     /* ---- LDPC sum-product BP (internal fec_sumproduct, the analog of
-       the TPU batched device BP): decode noisy all-zero codewords of a
-       random column-weight-3 regular H, ~0.7-sigma AWGN LLRs (the TPU
+       the batched device BP): decode noisy all-zero codewords of a
+       random column-weight-3 regular H, ~0.7-sigma AWGN LLRs (the device
        ldpc row's channel), max 20 iterations.  Mbit/s of INFO bits. */
     {
         unsigned int mrows[2] = {48, 512};

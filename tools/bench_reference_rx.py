@@ -1,6 +1,6 @@
 """Measure the reference C library's framesync64 streaming-RX
 throughput on this host (single thread, -O2), the honest baseline for
-PERF.md's config-#5 comparison (reference bench analog:
+the config-#5 comparison (reference bench analog:
 /root/reference/bench/bench.c methodology — wall-time a tight loop,
 report samples/s).
 

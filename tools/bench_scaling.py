@@ -7,7 +7,8 @@ on an N-device (t) mesh; throughput is measured with the same
 chained-checksum value-readback methodology as bench.py, and efficiency
 is throughput(N) / (N * throughput(1)).
 
-On real multi-chip hardware this measures ICI halo-exchange overhead.
+On real multi-GPU hardware this measures the NVLink halo-exchange
+overhead.
 On a virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=N)
 the devices share host cores, so "efficiency" also absorbs core
 contention — the harness and sharding are identical either way.
@@ -26,10 +27,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main():
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from liquid_dsp_tpu import chain
@@ -113,7 +110,7 @@ def main():
             # On a virtual CPU mesh the raw "efficiency" above absorbs
             # host-core contention/scheduling noise (+-30% run to run);
             # the overhead ratio taken as BEST-OF-REPS (least-contended
-            # pairing) is the observable that projects to ICI cost.
+            # pairing) is the observable that projects to link cost.
             overheads = []
             for _ in range(REPS):
                 m1 = bench_n(n)
@@ -122,7 +119,7 @@ def main():
             rec["comm_overhead"] = round(min(overheads), 4)
         print(json.dumps(rec))
 
-    # ---- the NORTH-STAR RX CHAIN, channel-DP sharded (VERDICT r3 #2):
+    # ---- the north-star RX chain, channel-DP sharded:
     # the streaming frame64 receiver has a sequential inter-block carry,
     # so it shards over CHANNELS (CLAUDE.md rule).  Channel-DP has no
     # halo; the observable is the sharding-machinery overhead — any

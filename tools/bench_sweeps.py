@@ -3,10 +3,10 @@
 
 Mirrors the reference's benchmark machinery (BASELINE.md rows):
   * dotprod sweep N in {4, 16, 64, 256} per type — reference
-    src/dotprod/bench/dotprod_crcf_benchmark.c:74-77.  On TPU a lone
+    src/dotprod/bench/dotprod_crcf_benchmark.c:74-77.  On a device a lone
     length-N dot product is meaningless (dispatch-dominated), so the
-    TPU-shaped equivalent is the BATCHED form the framework actually
-    runs: [rows, N] @ [N] on the MXU/VPU, rows sized to hold work
+    device-shaped equivalent is the BATCHED form the framework actually
+    runs: [rows, N] @ [N], rows sized to hold work
     constant (rows*N ~ 2^22).  Reported as effective MAC/s.
   * FFT size sweep over radix-2 / composite / prime sizes — reference
     src/fft/bench/fft_runbench.c + bench/fftbench.c.  Batched 1-D

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""On-chip soft-Viterbi throughput (fec/device.py conv_soft_decoder):
+"""On-device soft-Viterbi throughput (fec/device.py conv_soft_decoder):
 v27 (64 states) and v29 (256 states), batched over channels — the
 channel-batch lever is the documented mitigation for sequential scans
-on TPU (CLAUDE.md / PERF.md).
+(CLAUDE.md).
 
 Reports kbit/s of DECODED payload per configuration, value-verified
 (decoded-bit checksum read back inside the timed region, two-point
@@ -23,10 +23,6 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main():
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
     from liquid_dsp_tpu.fec.device import conv_soft_decoder

@@ -5,7 +5,7 @@ The reference (liquid-dsp) stores regression vectors as plain C arrays in
 ``src/<module>/tests/data/*.c`` (e.g. ``firfilt_crcf_data_h13x32.c`` declares
 ``..._h``, ``..._x`` and ``..._y`` arrays).  These are numeric test *data*
 generated by Octave scripts — we parse them into ``.npz`` files so pytest can
-assert our TPU implementation matches the reference outputs within the
+assert our implementation matches the reference outputs within the
 reference tolerance (tol=0.001, see reference src/filter/tests/firfilt_runtest.c:40).
 
 Usage:  python tools/extract_golden.py [--ref /root/reference] [--out tests/golden]

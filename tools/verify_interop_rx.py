@@ -152,10 +152,6 @@ def _run_rx(exe, mode, samples):
 
 
 def main():
-    import jax
-    import os
-    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
-        jax.config.update("jax_platforms", "cpu")
     exe = _compile_rx()
     rng = np.random.default_rng(2024)
     pad = np.zeros(200, np.complex64)
